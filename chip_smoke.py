@@ -8,11 +8,15 @@ with no result line anywhere else.  Imports nothing of JAX or of the
 reference package.  Prints one JSON object per line, in order:
 
 1. the device, then nvidia-smi's name and power limit on a line of its own;
-2. the kernel build: seconds and each kernel's registers and shared memory;
+2. the kernel build: seconds, each kernel's registers and shared memory,
+   and the MMR launch's cluster shape with cudaOccupancyMaxActiveClusters;
 3. each kernel against its plain PyTorch version on the card at the main
    path's shapes (max error or exact index equality, the kernel's time,
    the plain version's, one library call's where one computes the same
-   function, and the bound from the shapes);
+   function, and the bound from the shapes); top-k also on adversarial
+   rows at full size (masked, 100 live, constant, 64 levels, signed zeros
+   at the boundary), MMR also on a pool larger than a cluster's shared
+   memory, each MMR row with its time per step and cluster size;
 4. the main path at the paper's production size: 240k chunks through
    SQLite into ``RetrievalService`` on ``HopperBackend("cuda")``, the
    composed query through ``flex_search``, then 64 requests from 32
@@ -95,6 +99,25 @@ def time_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_breakdown(torch, fn, reps: int = 10) -> dict:
+    """Device microseconds a call of ``fn`` spends in each kernel (and
+    memset), from torch.profiler's CUDA trace over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            out[name.split("(")[0]] = ev.device_time_total / reps
+    return out
 
 
 def check_ranking(name, got, want, tol=TOL) -> list:
@@ -188,9 +211,16 @@ def phase_build() -> None:
                            "registers": int(regs.group(1)) if regs else None,
                            "static_smem": int(smem.group(1)) if smem else 0,
                            "spill_stores": int(spill.group(1)) if spill else 0}
+    from repro_torch.kernels.mmr import kernel as mmr_kernel
+
+    # the MMR launch's cluster shape at the main path's pool and at a pool
+    # larger than a cluster's shared memory holds
+    mmr_shapes = {f"n={n},d=128": mmr_kernel.shape(n, 128)
+                  for n in (2048, 8192)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_info["seconds"],
-          "library": _build.build_info["path"], "kernels": kernels})
+          "library": _build.build_info["path"], "kernels": kernels,
+          "mmr_cluster": mmr_shapes})
 
 
 def phase_pem_score(torch) -> dict:
@@ -245,6 +275,46 @@ def phase_pem_score(torch) -> dict:
     return rows
 
 
+ADVERSARIAL = ("masked", "100 live", "constant", "64 levels", "signed zeros",
+               "random")
+
+
+def adversarial_panel(torch, gen, b, n, k):
+    """(b, n) rows cycling through ``ADVERSARIAL``: a fully masked row; 100
+    live entries, the rest -inf; a constant row; values on 64 levels, so
+    thousands of ties straddle the k-th key; k/2 positives, then +0.0 and
+    -0.0 so that the k-th key is the 7th -0.0 (shuffled); and a random row
+    with a tombstone every 50 columns."""
+    dev = torch.device("cuda")
+    s = torch.empty((b, n), device=dev)
+    half = min(k // 2, n // 4)
+    plus = max(k - half - 7, 0)
+    for r in range(b):
+        kind = ADVERSARIAL[r % len(ADVERSARIAL)]
+        row = s[r]
+        if kind == "masked":
+            row.fill_(float("-inf"))
+        elif kind == "100 live":
+            row.fill_(float("-inf"))
+            row[torch.randperm(n, generator=gen, device=dev)[:100]] = \
+                torch.randn(100, generator=gen, device=dev)
+        elif kind == "constant":
+            row.fill_(0.5)
+        elif kind == "64 levels":
+            row.copy_(torch.floor(torch.rand(n, generator=gen, device=dev)
+                                  * 64) / 64)
+        elif kind == "signed zeros":
+            row.fill_(-1.0)
+            row[:half] = torch.rand(half, generator=gen, device=dev) + 0.1
+            row[half:half + plus] = 0.0
+            row[half + plus:3 * half] = -0.0
+            row.copy_(row[torch.randperm(n, generator=gen, device=dev)])
+        else:
+            row.copy_(torch.randn(n, generator=gen, device=dev))
+            row[::50] = float("-inf")
+    return s
+
+
 def phase_topk(torch) -> dict:
     from repro_torch.kernels.topk.ops import topk
     from repro_torch.kernels.topk.ref import topk_ref
@@ -270,9 +340,27 @@ def phase_topk(torch) -> dict:
         row = {"phase": "kernel", "name": "topk", "b": b, "n": n, "k": k,
                "exact": exact, "max_abs_err": 0.0, "ms": ms,
                "plain_ms": plain, "library_ms": lib, "bound_ms": t,
-               "bound_by": by}
+               "bound_by": by,
+               # one read of the panel by a library reduction, for scale
+               "panel_sum_ms": time_ms(torch, lambda: s.sum(dim=1), 50),
+               "per_launch_us": launch_breakdown(torch, lambda: topk(s, k))}
         emit(row)
         rows[(b, n, k)] = row
+    # adversarial rows at the main path's full size, each held exactly
+    b, n, k = 32, 240_000, 2048
+    adv = adversarial_panel(torch, gen, b, n, k)
+    v, i = topk(adv, k)
+    vr, ir = topk_ref(adv, k)
+    torch.cuda.synchronize()
+    bad = [ADVERSARIAL[r % len(ADVERSARIAL)] for r in range(b)
+           if not (torch.equal(i[r], ir[r]) and torch.equal(v[r], vr[r]))]
+    if bad:
+        raise AssertionError(f"topk adversarial rows differ: {sorted(set(bad))}")
+    emit({"phase": "kernel", "name": "topk", "case": "adversarial", "b": b,
+          "n": n, "k": k, "rows": list(ADVERSARIAL), "exact": True,
+          "ms": time_ms(torch, lambda: topk(adv, k), 50),
+          "library_ms": time_ms(torch, lambda: torch.topk(adv, k, dim=1),
+                                50)})
     # ties, -inf padding, masked rows and signed zeros
     tie = torch.tensor([-1.0, 3.0, 3.0, -5.0, 0.0, -0.0, float("-inf")],
                        device=dev).repeat(8, 5000)
@@ -292,19 +380,27 @@ def phase_topk(torch) -> dict:
 
 
 def phase_mmr(torch) -> dict:
+    from repro_torch.kernels.mmr import kernel as mmr_kernel
     from repro_torch.kernels.mmr.ops import NEG, mmr_select
     from repro_torch.kernels.mmr.ref import mmr_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    d, bucket, pool = 128, 2048, 1500
+    d = 128
     rows = {}
-    for b, k in ((1, 500), (32, 10), (4, 500)):
+    # (b, k, bucket, live, lambdas): the direct path, the batched path, the
+    # three lambdas, and a pool larger than a cluster's shared memory holds
+    # (its rows past that are read from global memory)
+    cases = ((1, 500, 2048, 1500, (0.7,)), (32, 10, 2048, 1500, (0.7,)),
+             (4, 500, 2048, 1500, (0.7, 0.0, 1.0)),
+             (2, 100, 8192, 6000, (0.7, 0.0, 1.0)))
+    for b, k, bucket, pool, lams in cases:
+        shape = mmr_kernel.shape(bucket, d)
         e = torch.randn(b, bucket, d, generator=gen, device=dev)
         e /= e.norm(dim=-1, keepdim=True)
         rel = torch.randn(b, bucket, generator=gen, device=dev) * 0.1
         rel[:, pool:] = NEG
-        for lam in ((0.7,) if b != 4 else (0.7, 0.0, 1.0)):
+        for lam in lams:
             lam_t = torch.full((b,), lam, device=dev)
             idx, val = mmr_select(e, rel, k, lam_t)
             ir, vr = mmr_ref(e, rel, k, lam_t)
@@ -312,20 +408,25 @@ def phase_mmr(torch) -> dict:
             exact = bool(torch.equal(idx, ir))
             err = float((val - vr).abs().max())
             if not exact or err > TOL or int(idx.max()) >= pool:
-                raise AssertionError(f"mmr b={b} k={k} lam={lam}: indices "
-                                     f"equal {exact}, value error {err}")
+                raise AssertionError(f"mmr b={b} n={bucket} k={k} lam={lam}: "
+                                     f"indices equal {exact}, value error "
+                                     f"{err}")
+            ms = time_ms(torch, lambda: mmr_select(e, rel, k, lam_t), 10)
             row = {"phase": "kernel", "name": "mmr", "b": b, "n": bucket,
                    "live": pool, "d": d, "k": k, "lam": lam, "exact": exact,
-                   "max_abs_err": err}
-            if lam == 0.7 and b != 4:
-                row["ms"] = time_ms(torch, lambda: mmr_select(e, rel, k, lam_t),
-                                    10)
+                   "max_abs_err": err, "ms": ms, "ms_per_step": ms / k,
+                   "cluster": shape["cluster"],
+                   "rows_in_smem_per_cta": shape["rows_in_smem"],
+                   "global_rows": max(0, pool - shape["cluster"]
+                                      * shape["rows_in_smem"])}
+            if lam == 0.7 and bucket == 2048 and b != 4:
                 row["plain_ms"] = time_ms(
                     torch, lambda: mmr_ref(e, rel, k, lam_t), 2)
                 row["library_ms"] = None
                 # the k dependent steps bound it in practice; the formula's
-                # floor is the k * n * d similarity products
-                t, by = bound_ms(b * bucket * (d + 1) * 4 + b * k * 8,
+                # floor is the live pool and rel read once, the picks
+                # written, or the k * live * d similarity products
+                t, by = bound_ms(b * (pool * d + bucket) * 4 + b * k * 8,
                                  2.0 * b * k * pool * d)
                 row.update(bound_ms=t, bound_by=by)
                 rows[(b, k)] = row

@@ -2,10 +2,12 @@
 
 Same name and arguments as ``repro.kernels.mmr.ops.mmr_select`` minus the
 interpret switch: a CPU tensor takes the plain version (``ref.py``), a
-CUDA tensor launches ``csrc/mmr.cu``.  ``lam`` is a scalar or a (B,)
-vector (the scalar broadcasts here), so one launch serves plans with
-different lambdas.  Padding slots carry rel = NEG; the kernel takes any n,
-so nothing is padded to the TPU's 128 multiples.
+CUDA tensor launches ``csrc/mmr.cu``: one cluster of 8 CTAs a query, the
+pool's live rows held in the CTAs' shared memory (rows that do not fit are
+read from global memory by the same kernel).  ``lam`` is a scalar or a
+(B,) vector (the scalar broadcasts here), so one launch serves plans with
+different lambdas.  Padding slots carry rel = NEG and are never loaded;
+the kernel takes any n, so nothing is padded to the TPU's 128 multiples.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from repro_torch.kernels.mmr.ref import NEG, mmr_ref
 
 __all__ = ["NEG", "mmr_select"]
 
-MAX_POOL = 25000  # 9 bytes of shared memory a slot within 227 KB
+MAX_POOL = 25000  # a CTA keeps 13 bytes of state for each of n / 8 slots
 
 
 def mmr_select(

@@ -2,10 +2,10 @@
 
 Same name and arguments as ``repro.kernels.topk.ops.topk`` minus the TPU
 block sizes and interpret switch: a CPU tensor takes the plain version
-(``ref.py``), a CUDA tensor runs ``csrc/topk.cu``'s tile passes.  Pass 1
-sorts tiles of the score panel and keeps each tile's first k keys; every
-later pass does the same over the survivors, until one tile remains and
-writes values and indices.  ``launches`` counts every pass.
+(``ref.py``), a CUDA tensor runs ``csrc/topk.cu``: a radix select of each
+row's K-th key, a compaction of the K survivors in index order and one
+sort of them, all enqueued by one call with no host synchronisation.
+``launches`` counts every kernel launch (six a call).
 """
 
 from __future__ import annotations
@@ -17,13 +17,24 @@ import torch
 from repro_torch.kernels.topk import kernel
 from repro_torch.kernels.topk.ref import topk_ref
 
-MIN_TILE = 8192    # keys a tile sorts (64 KB of shared memory)
-MAX_TILE = 16384   # 128 KB: the largest tile, so k <= MAX_TILE // 2
+MAX_K = 8192       # the sort keeps k 64-bit keys in shared memory (64 KB)
 MAX_ROWS = 65535   # the grid's y extent
+CHUNKS = (1024, 2048, 4096, 8192, 16384)  # columns a block takes
+MIN_BLOCKS = 264   # two blocks an SM on the H100's 132
 
 
 def _pow2(x: int) -> int:
     return 1 << max(x - 1, 0).bit_length()
+
+
+def chunking(rows: int, length: int) -> Tuple[int, int]:
+    """(chunk, chunks): the largest chunk that still gives the grid
+    ``MIN_BLOCKS`` blocks, so a single row spreads over the card."""
+    chunk = CHUNKS[0]
+    for c in CHUNKS:
+        if rows * -(-length // c) >= MIN_BLOCKS:
+            chunk = c
+    return chunk, -(-length // chunk)
 
 
 def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,31 +53,22 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     b, n = scores.shape
     if b > MAX_ROWS:
         raise ValueError(f"topk: at most {MAX_ROWS} rows, got {b}")
-    tile = min(max(MIN_TILE, _pow2(4 * k)), MAX_TILE)
-    if 2 * k > tile:
-        raise ValueError(f"topk: k={k} above the kernel's {MAX_TILE // 2}")
+    if k > MAX_K:
+        raise ValueError(f"topk: k={k} above the kernel's {MAX_K}")
     dev = scores.device
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0 or k == 0:
         return vals, idx
-    keys = None
-    length = max(n, k)
-    while True:
-        tiles = -(-length // tile)
-        sort_n = _pow2(min(tile, length))
-        if tiles == 1:
-            kernel.launch_pass(scores, keys, length, tile, sort_n, k,
-                               None, vals, idx)
-            topk.launches += 1
-            return vals, idx
-        kept = torch.empty((b, tiles * k), dtype=torch.int64, device=dev)
-        kernel.launch_pass(scores, keys, length, tile, sort_n, k, kept,
-                           None, None)
-        topk.launches += 1
-        keys, length = kept, tiles * k
+    if n == 0:  # the kernel reads at least one column: all of them -inf
+        scores = scores.new_full((b, k), float("-inf"))
+    chunk, chunks = chunking(b, max(n, k))
+    ws = torch.empty(-(-kernel.workspace_bytes(b, chunks, k) // 8),
+                     dtype=torch.int64, device=dev)
+    kernel.launch(scores, k, chunk, chunks, _pow2(k), ws, vals, idx)
+    topk.launches += kernel.LAUNCHES
+    return vals, idx
 
 
-#: kernel launches (tile passes) since the last reset; the plain CPU path
-#: never counts
+#: kernel launches since the last reset; the plain CPU path never counts
 topk.launches = 0

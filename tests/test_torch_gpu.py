@@ -91,6 +91,46 @@ def test_topk_ties_neg_inf_and_signed_zeros(cuda):
         assert all(len(set(r.tolist())) == k for r in i.cpu())
 
 
+def adversarial_rows(gen, n, k, device):
+    """Five rows that stress the radix select's tie handling: fully
+    masked, 100 live entries, constant, 64 quantized levels (thousands of
+    ties straddle the k-th key), and a boundary inside +0.0 / -0.0."""
+    s = torch.full((5, n), float("-inf"), device=device)
+    s[1, torch.randperm(n, generator=gen, device=device)[:100]] = torch.randn(
+        100, generator=gen, device=device)
+    s[2] = 0.5
+    s[3] = torch.floor(torch.rand(n, generator=gen, device=device) * 64) / 64
+    half = min(k // 2, n // 4)  # positives, then 2 * half signed zeros
+    s[4] = -1.0
+    s[4, :half] = torch.rand(half, generator=gen, device=device) + 0.1
+    plus = max(k - half - 7, 0)  # the k-th key is the 7th -0.0
+    s[4, half:half + plus] = 0.0
+    s[4, half + plus:3 * half] = -0.0
+    return s[:, torch.randperm(n, generator=gen, device=device)]
+
+
+@pytest.mark.parametrize("n,k", [(20_000, 10), (20_000, 2048),
+                                 (20_000, 8192), (1000, 2048)])
+def test_topk_adversarial_ties_match_plain(cuda, n, k):
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    s = adversarial_rows(gen, n, k, cuda)
+    before = topk.launches
+    v, i = topk(s, k)
+    vr, ir = topk_ref(s, k)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir) and torch.equal(v, vr)
+    assert topk.launches > before
+    assert all(len(set(r.tolist())) == k for r in i.cpu())
+
+
+def test_topk_with_no_columns_returns_neg_inf_padding(cuda):
+    s = torch.empty((3, 0), device=cuda)
+    v, i = topk(s, 5)
+    vr, ir = topk_ref(s, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir) and torch.equal(v, vr)
+
+
 def test_topk_reads_a_strided_view(cuda):
     gen = torch.Generator(device=cuda).manual_seed(7)
     panel = torch.randn(50_000, 8, generator=gen, device=cuda)
@@ -113,6 +153,57 @@ def test_mmr_matches_plain(cuda, lam):
     assert torch.equal(idx, ir)
     torch.testing.assert_close(val, vr, atol=1e-5, rtol=1e-5)
     assert int(idx.max()) < pool
+
+
+@pytest.mark.parametrize("lam", [0.7, 0.0, 1.0])
+@pytest.mark.parametrize("d", [128, 254])
+def test_mmr_pool_beyond_shared_memory_matches_plain(cuda, lam, d):
+    """A pool larger than the cluster's shared memory holds: the rows that
+    do not fit are read from global memory by the same kernel."""
+    from repro_torch.kernels.mmr import kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    b, n, pool, k = 2, 8192, 6000, 100
+    shape = kernel.shape(n, d + (-d) % 4)
+    assert shape["max_active_clusters"] > 0
+    assert shape["rows_in_smem"] * shape["cluster"] < pool
+    e = _unit_rows(gen, b, n, d, device=cuda)
+    rel = torch.randn(b, n, generator=gen, device=cuda)
+    rel[:, pool:] = NEG
+    idx, val = mmr_select(e, rel, k, lam)
+    ir, vr = mmr_ref(e, rel, k, torch.full((b,), lam, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ir)
+    torch.testing.assert_close(val, vr, atol=1e-5, rtol=1e-5)
+
+
+def test_mmr_full_ties_match_plain(cuda):
+    """Equal relevance and identical rows: every step is a tie across the
+    cluster's CTAs, so the smallest slot must win each time."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    row = _unit_rows(gen, 1, 1, 64, device=cuda)
+    e = row.repeat(2, 300, 1)
+    rel = torch.full((2, 300), 0.5, device=cuda)
+    idx, val = mmr_select(e, rel, 40, 0.7)
+    ir, vr = mmr_ref(e, rel, 40, torch.full((2,), 0.7, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ir)
+    torch.testing.assert_close(val, vr, atol=1e-5, rtol=1e-5)
+
+
+def test_mmr_exhausted_pool_matches_plain(cuda):
+    """k above the live slots: once every live slot is taken the reference
+    returns slot 0 at NEG, and so must the kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    b, n, live, d, k = 3, 50, 20, 32, 30
+    e = _unit_rows(gen, b, n, d, device=cuda)
+    rel = torch.randn(b, n, generator=gen, device=cuda)
+    rel[:, live:] = NEG
+    idx, val = mmr_select(e, rel, k, 0.7)
+    ir, vr = mmr_ref(e, rel, k, torch.full((b,), 0.7, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ir)
+    torch.testing.assert_close(val, vr, atol=1e-5, rtol=1e-5)
 
 
 def test_hopper_backend_matches_plain_chain(cuda):

@@ -161,3 +161,81 @@ def test_mmr_lambda_vector_equals_per_row_scalars():
         np.testing.assert_array_equal(idx[b].numpy(), ib[0].numpy())
         # a batched and a single product sum in different orders
         np.testing.assert_allclose(val[b].numpy(), vb[0].numpy(), atol=1e-6)
+
+
+def _adversarial_scores(case: str) -> tuple:
+    """(scores (4, n) f32, k) for one adversarial top-k case: the inputs
+    the radix select's tie handling has to get right on the card."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "full_row_ties":
+        s = np.full((4, 600), 0.25, np.float32)
+        s[1] = -np.inf                        # a fully masked row
+        s[2] = 0.0
+        s[3, ::2] = -0.0                      # signed zeros tie as well
+        return s, 130
+    if case == "k_above_live":
+        s = np.full((4, 500), -np.inf, np.float32)
+        for r in range(4):
+            live = rng.choice(500, 20 + 10 * r, replace=False)
+            s[r, live] = rng.standard_normal(live.size)
+        return s, 64
+    if case == "quantized_boundary":
+        s = (np.floor(rng.random((4, 1000)) * 16) / 16).astype(np.float32)
+        return s, 150  # about 60 ties a level: the 150th key sits in one
+    if case == "signed_zeros_boundary":
+        s = np.full((4, 400), -1.0, np.float32)
+        s[:, :50] = rng.random((4, 50)) + 0.1
+        s[:, 50:93] = 0.0                     # the 100th key is a -0.0
+        s[:, 93:150] = -0.0
+        return s[:, rng.permutation(400)], 100
+    assert case == "n_not_multiple_of_8"
+    s = rng.standard_normal((4, 1003)).astype(np.float32)
+    s[0, ::7] = -np.inf
+    return s, 77
+
+
+@pytest.mark.parametrize("case", ["full_row_ties", "k_above_live",
+                                  "quantized_boundary", "signed_zeros_boundary",
+                                  "n_not_multiple_of_8"])
+def test_topk_adversarial_ties_match_pallas(case):
+    """The plain version, which the card's radix select is held to, against
+    lax.top_k and the Pallas kernel on inputs full of ties."""
+    s, k = _adversarial_scores(case)
+    _check_topk(s, k, 128)
+
+
+def _adversarial_pool(case: str) -> tuple:
+    """(embeds (2, n, d), rel (2, n), k) for one adversarial MMR case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "full_ties":  # equal relevance, identical rows: every step ties
+        e = np.tile(_unit_rows(rng, 1, 1, 16), (2, 40, 1))
+        return e, np.full((2, 40), 0.5, np.float32), 12
+    if case == "quantized_rel":
+        e = _unit_rows(rng, 2, 150, 32)
+        return e, (np.floor(rng.random((2, 150)) * 4) / 4).astype(np.float32), 30
+    if case == "whole_pool":
+        e = _unit_rows(rng, 2, 40, 8)
+        return e, rng.standard_normal((2, 40)).astype(np.float32), 40
+    assert case == "n_not_multiple_of_8"
+    e = _unit_rows(rng, 2, 203, 24)
+    return e, rng.standard_normal((2, 203)).astype(np.float32), 50
+
+
+@pytest.mark.parametrize("lam", [0.7, 0.0, 1.0])
+@pytest.mark.parametrize("case", ["full_ties", "quantized_rel", "whole_pool",
+                                  "n_not_multiple_of_8"])
+def test_mmr_adversarial_ties_match_pallas(case, lam):
+    """The plain version, which the card's cluster kernel is held to,
+    against the Pallas kernel, its jnp oracle and mmr_select_np where ties
+    decide every pick."""
+    e, rel, k = _adversarial_pool(case)
+    idx, val = mmr_select(torch.from_numpy(e), torch.from_numpy(rel), k, lam)
+    ik, vk = jax_mmr_select(jnp.asarray(e), jnp.asarray(rel), k, lam,
+                            interpret=True)
+    ir, _ = jax_mmr_ref(jnp.asarray(e), jnp.asarray(rel), k, lam)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ik))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ir))
+    np.testing.assert_allclose(val.numpy(), np.asarray(vk), atol=1e-5)
+    for b in range(2):
+        np.testing.assert_array_equal(idx.numpy()[b],
+                                      mmr_select_np(e[b], rel[b], k, lam))
