@@ -8,19 +8,25 @@ with no result line anywhere else.  Imports nothing of JAX or of the
 reference package.  Prints one JSON object per line, in order:
 
 1. the device, then nvidia-smi's name and power limit on a line of its own;
-2. the kernel build: seconds, each kernel's registers and shared memory,
-   and the MMR launch's cluster shape with cudaOccupancyMaxActiveClusters;
+2. the kernel build: seconds, each kernel's registers, shared memory and
+   spills, the MMR launch's cluster shape with
+   cudaOccupancyMaxActiveClusters, and pem_score's launch shape;
 3. each kernel against its plain PyTorch version on the card at the main
    path's shapes (max error or exact index equality, the kernel's time,
    the plain version's, one library call's where one computes the same
-   function, and the bound from the shapes); top-k also on adversarial
+   function, and the bound from the shapes); pem_score at 240k and
+   1,000,448 rows, f32 and bf16, B = 1 and 32 (its bound both by bytes
+   and by split-TF32 operations, one call's per-launch profile), and a
+   batch over five half-lives in one launch timed beside the grouped
+   chain of five; top-k also on adversarial
    rows at full size (masked, 100 live, constant, 64 levels, signed zeros
    at the boundary), MMR also on a pool larger than a cluster's shared
    memory, each MMR row with its time per step and cluster size;
 4. the main path at the paper's production size: 240k chunks through
    SQLite into ``RetrievalService`` on ``HopperBackend("cuda")``, the
    composed query through ``flex_search``, then 64 requests from 32
-   threads through ``BatchedRetrievalEngine``; every ranking held against
+   threads through ``BatchedRetrievalEngine`` and 8 over mixed
+   half-lives (one pem_score launch a batch); every ranking held against
    the ``fused-numpy`` oracle on the same store;
 5. the 1M phase: 1,000,448 seeded chunks in four segments with tombstones
    through ``store_from_arrays``, two composed queries against the oracle;
@@ -51,6 +57,7 @@ sys.path.insert(0, str(ROOT / "src"))
 NOW = 1_770_000_000.0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores, same source
+TF32_FLOPS_PER_S = 495e12    # dense TF32 on the tensor cores, same source
 TOL = 1e-5
 TOKENS = (
     "similar:how the system works architecture "
@@ -71,6 +78,11 @@ DEVICE = "cuda"          # the phases' device ("cpu" rehearses them on the
 #                          kernels' plain versions, at a small MAIN_N)
 TOPICS = ["server lifecycle", "identity provenance", "rendering pipeline",
           "auth token", "database migration"]
+# engine requests over mixed half-lives (and none), after the 64 decay:30
+MIXED_REQUESTS = [f"similar:{TOPICS[i % len(TOPICS)]} {mod}".strip()
+                  for i, mod in enumerate(
+                      ("decay:7", "decay:14", "decay:30", "decay:90", "",
+                       "decay:7 diverse", "decay:30 diverse", "diverse"))]
 
 
 def emit(obj) -> None:
@@ -217,13 +229,37 @@ def phase_build() -> None:
     # larger than a cluster's shared memory holds
     mmr_shapes = {f"n={n},d=128": mmr_kernel.shape(n, 128)
                   for n in (2048, 8192)}
+    from repro_torch.kernels.pem_score import kernel as pem_kernel
+
+    # K1's launch (product width, query chunks, ring stages, resident or
+    # restaged query, grid, shared memory) at the main path's widths
+    pem_shapes = {f"n={MAIN_N},b={b},{dt}": pem_kernel.plan(
+        MAIN_N, 128, b, dt == "bf16")
+        for b, dt in ((1, "f32"), (32, "f32"), (32, "bf16"), (130, "f32"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_info["seconds"],
           "library": _build.build_info["path"], "kernels": kernels,
-          "mmr_cluster": mmr_shapes})
+          "mmr_cluster": mmr_shapes, "pem_score_launch": pem_shapes})
+
+
+def pem_bound(n: int, d: int, b: int, esize: int) -> dict:
+    """K1's least time: the bytes (corpus, queries, the (N,) decay or ages,
+    the (N, B) panel) over the HBM rate, against the split-TF32 products
+    (three for an f32 corpus, two for bf16: 2 * N * d * 2B operations
+    each) over the TF32 peak; beside it, the 4 * N * d * B f32 operations
+    on the CUDA cores that the kernel no longer runs."""
+    nbytes = n * d * esize + 2 * d * b * 4 + n * 4 + n * b * 4
+    products = 3 if esize == 4 else 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = products * 4.0 * n * d * b / TF32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_tf32_ms": t_ops,
+            "f32_cuda_core_ms": 4.0 * n * d * b / F32_FLOPS_PER_S * 1e3}
 
 
 def phase_pem_score(torch) -> dict:
+    from repro_torch.kernels.pem_score import kernel as pem_kernel
     from repro_torch.kernels.pem_score.ops import pem_score
     from repro_torch.kernels.pem_score.ref import pem_score_ref
 
@@ -231,7 +267,7 @@ def phase_pem_score(torch) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     d = 128
     rows = {}
-    for n in (240_000, SCALE1M_N):
+    for n in (MAIN_N, SCALE1M_N):
         base = torch.randn(n, d, generator=gen, device=dev)
         base /= base.norm(dim=1, keepdim=True)
         decay = 1.0 / (1.0 + torch.rand(n, generator=gen, device=dev) * 10)
@@ -256,23 +292,102 @@ def phase_pem_score(torch) -> dict:
                 qcat = torch.cat([qp, qs], dim=1)
 
                 def library():
-                    both = torch.matmul(m, qcat)
+                    # one f32 product (a bf16 corpus widened first: the
+                    # library has no bf16 x f32 product) and its epilogue
+                    both = torch.matmul(m if m.dtype == torch.float32
+                                        else m.float(), qcat)
                     return decay[:, None] * both[:, :b] + both[:, b:]
 
-                lib = (time_ms(torch, library, iters)
-                       if dtype == torch.float32 else None)
-                esize = m.element_size()
-                t, by = bound_ms(n * d * esize + 2 * d * b * 4 + n * 4
-                                 + n * b * 4, 4.0 * n * d * b)
+                lib = time_ms(torch, library, iters)
                 row = {"phase": "kernel", "name": "pem_score", "n": n, "d": d,
                        "b": b, "dtype": str(dtype).split(".")[-1],
                        "max_abs_err": err, "tol": tol, "ms": ms,
-                       "plain_ms": plain, "library_ms": lib, "bound_ms": t,
-                       "bound_by": by}
+                       "plain_ms": plain, "library_ms": lib,
+                       **pem_bound(n, d, b, m.element_size()),
+                       "launch": pem_kernel.plan(n, d, b,
+                                                 dtype == torch.bfloat16)}
+                if n == MAIN_N and b == 32 and dtype == torch.float32:
+                    row["per_launch_us"] = launch_breakdown(
+                        torch, lambda: pem_score(m, qp, qs, decay,
+                                                 out=panel.T))
                 emit(row)
                 rows[(n, b, row["dtype"])] = row
         del base, m
+    rows["mixed"] = pem_mixed_half_lives(torch, gen)
     return rows
+
+
+def pem_mixed_half_lives(torch, gen) -> dict:
+    """An engine batch's scoring: 240k x 128 f32, 32 plans over the
+    half-lives 7, 14, 30, 90 and none, in one launch (per-plan factors
+    from the rows' ages) against the plain version, timed beside the
+    grouped chain that scored such a batch before (one launch per
+    half-life into the panel's rows, then a gather back to plan order;
+    its decay columns precomputed on the card, so the chain is timed
+    without the host work it also did)."""
+    from repro_torch.kernels.pem_score.ops import pem_score
+    from repro_torch.kernels.pem_score.ref import (decay_factors,
+                                                   pem_score_days_ref)
+
+    dev = torch.device("cuda")
+    n, d, b = MAIN_N, 128, 32
+    m = torch.randn(n, d, generator=gen, device=dev)
+    m /= m.norm(dim=1, keepdim=True)
+    qp = torch.randn(d, b, generator=gen, device=dev) / d ** 0.5
+    qs = torch.randn(d, b, generator=gen, device=dev) * 0.1
+    days = torch.rand(n, generator=gen, device=dev) * 180
+    levels = [7.0, 14.0, 30.0, 90.0, float("inf")]
+    hl = torch.tensor([levels[j % 5] for j in range(b)], device=dev)
+    panel = torch.empty((b, n), device=dev)
+    before = pem_score.launches
+    got = pem_score(m, qp, qs, days_ago=days, half_lives=hl, out=panel.T)
+    launches = pem_score.launches - before
+    want = pem_score_days_ref(m, qp, qs, days, hl)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= TOL or launches != 1:
+        raise AssertionError(f"pem_score mixed half-lives: max error {err}, "
+                             f"{launches} launches")
+    groups = [[j for j in range(b) if j % 5 == i] for i in range(5)]
+    order = [j for cols in groups for j in cols]
+    perm = torch.argsort(torch.tensor(order, device=dev))
+    parts = [(qp[:, cols].contiguous(), qs[:, cols].contiguous(),
+              None if levels[i] == float("inf")
+              else decay_factors(days, hl[cols[:1]])[:, 0].contiguous())
+             for i, cols in enumerate(groups)]
+
+    def grouped():
+        out = torch.empty((b, n), device=dev)
+        r = 0
+        for (p, s, dec), cols in zip(parts, groups):
+            pem_score(m, p, s, dec, out=out[r:r + len(cols)].T)
+            r += len(cols)
+        return out[perm]
+
+    chain = grouped()
+    torch.cuda.synchronize()
+    chain_err = float((chain.T - want).abs().max())
+    if not chain_err <= TOL:
+        raise AssertionError(f"grouped chain: max error {chain_err}")
+    qcat = torch.cat([qp, qs], dim=1)
+
+    def library():
+        both = torch.matmul(m, qcat)
+        return decay_factors(days, hl) * both[:, :b] + both[:, b:]
+
+    ms = time_ms(torch, lambda: pem_score(m, qp, qs, days_ago=days,
+                                          half_lives=hl, out=panel.T), 50)
+    row = {"phase": "kernel", "name": "pem_score", "case": "mixed half-lives",
+           "n": n, "d": d, "b": b, "half_lives": levels, "dtype": "float32",
+           "launches": launches, "max_abs_err": err, "tol": TOL, "ms": ms,
+           "grouped_chain_ms": time_ms(torch, grouped, 50),
+           "grouped_chain_launches": len(groups),
+           "plain_ms": time_ms(torch, lambda: pem_score_days_ref(
+               m, qp, qs, days, hl), 50),
+           "library_ms": time_ms(torch, library, 50),
+           **pem_bound(n, d, b, 4)}
+    emit(row)
+    return row
 
 
 ADVERSARIAL = ("masked", "100 live", "constant", "64 levels", "signed zeros",
@@ -502,8 +617,18 @@ def phase_main_path(torch) -> dict:
         served = list(ex.map(one, reqs))
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    counts = _counts()
     stats = engine.stats()
+    # a batch over mixed half-lives (and none): still one K1 launch a batch
+    k1_before = _counts()["pem_score"]
+    with cf.ThreadPoolExecutor(max_workers=len(MIXED_REQUESTS)) as ex:
+        mixed_served = list(ex.map(lambda q: engine.search(q, 10),
+                                   MIXED_REQUESTS))
+    torch.cuda.synchronize()
+    mixed = {"requests": len(MIXED_REQUESTS),
+             "batches": engine.stats()["batches_served"]
+             - stats["batches_served"],
+             "pem_score_launches": _counts()["pem_score"] - k1_before}
+    counts = _counts()
     engine.close()
     fused_stats = svc.cache.fused.stats()
     peak = torch.cuda.max_memory_allocated()
@@ -517,6 +642,12 @@ def phase_main_path(torch) -> dict:
     for q, got in zip(reqs, served):
         want = svc.cache.search(q, now=NOW, engine="fused")[:10]
         near_ties += check_ranking(f"engine {q!r}", got, want)
+    mixed["ranking_near_ties"] = []
+    for q, got in zip(MIXED_REQUESTS, mixed_served):
+        want = svc.cache.search(q, now=NOW, engine="fused")[:10]
+        mixed["ranking_near_ties"] += check_ranking(f"engine {q!r}", got,
+                                                    want)
+    mixed["oracle_match"] = True
     # the composed query's 2048-wide pool (diverse plans select 1500 rows
     # in a 2048 bucket) against the oracle's, before MMR
     plan = parse(TOKENS, emb)
@@ -539,7 +670,8 @@ def phase_main_path(torch) -> dict:
            "device_mmr": fused_stats["device_mmr"],
            "host_pool_transfers": fused_stats["host_pool_transfers"],
            "uploads": backend.uploads, "max_memory_allocated": peak,
-           "launches": counts, "oracle_match": True,
+           "launches": counts, "mixed_half_lives": mixed,
+           "oracle_match": True,
            "ranking_near_ties": near_ties, "pool_check": pool}
     emit(out)
     svc.close()
@@ -547,6 +679,9 @@ def phase_main_path(torch) -> dict:
         raise AssertionError(f"a kernel never ran on the main path: {counts}")
     if fused_stats["host_pool_transfers"]:
         raise AssertionError("diverse pools crossed to the host")
+    if mixed["pem_score_launches"] != mixed["batches"]:
+        raise AssertionError(f"mixed half-lives: {mixed['batches']} batches "
+                             f"but {mixed['pem_score_launches']} K1 launches")
     return out
 
 

@@ -532,11 +532,12 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
 
     ``device="cuda"`` (the default) launches the CUDA kernels and raises on
     a machine without a card; ``device="cpu"`` runs the same chain through
-    the kernels' plain versions.  The scoring kernel takes one decay
-    column per launch, so requests group by half-life and each group
-    scores in one launch, writing its rows of a (B, N) panel that the
-    top-k kernel reads in place; the ``mmr`` kernel then selects over
-    every diverse plan's device-resident pool in one launch.  No host hop
+    the kernels' plain versions.  The scoring kernel computes each plan's
+    decay factor from the rows' ages and the plan's half-life, so the
+    whole batch scores in one launch, whatever its mix of half-lives,
+    into a (B, N) panel in plan order that the top-k kernel reads in
+    place; the ``mmr`` kernel then selects over every diverse plan's
+    device-resident pool in one launch.  No host hop
     anywhere in the chain: only final candidates come back.
     """
 
@@ -557,47 +558,38 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
                 dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
 
-    def _grouped_panel(self, matrix, days_ago, plans):
-        """Device-resident (B, N) score panel, rows in plan order."""
+    def _panel(self, matrix, days_ago, plans):
+        """Device-resident (B, N) score panel, rows in plan order, from
+        one scoring launch whatever the plans' half-lives."""
         import torch
 
         from repro_torch.kernels.pem_score.ops import pem_score
 
         q_pre, q_sup = M.fold_plans(plans)
-        mat = self._device_matrix(matrix)
-        groups: Dict[Optional[float], List[int]] = {}
-        for j, plan in enumerate(plans):
-            hl = plan.decay.half_life_days if plan.decay is not None else None
-            groups.setdefault(hl, []).append(j)
-
         panel = torch.empty((len(plans), matrix.shape[0]),
                             dtype=torch.float32, device=self.device)
-        order: List[int] = []
-        for hl, cols in groups.items():
-            decay = None
-            if hl is not None:
-                decay = _to_device(
-                    np.asarray(_decay_column(days_ago, hl), np.float32),
-                    self.device)
-            rows = panel[len(order):len(order) + len(cols)]
-            # the transposed view takes the (N, B) scores the kernel
-            # computes straight into the (B, N) rows top-k reads
-            pem_score(mat,
-                      _to_device(np.asarray(q_pre[:, cols], np.float32),
-                                 self.device),
-                      _to_device(np.asarray(q_sup[:, cols], np.float32),
-                                 self.device),
-                      decay, out=rows.T)
-            order.extend(cols)
-        if order != list(range(len(plans))):
-            panel = panel[_to_device(np.argsort(np.asarray(order)),
-                                     self.device)]
+        ages = {}
+        if any(p.decay is not None for p in plans):
+            # each plan's factor is computed in the kernel's epilogue from
+            # the rows' ages and its half-life (+inf: exactly 1)
+            ages = dict(
+                days_ago=_to_device(np.asarray(days_ago, np.float32),
+                                    self.device),
+                half_lives=_to_device(np.asarray(
+                    [p.decay.half_life_days if p.decay is not None
+                     else np.inf for p in plans], np.float32), self.device))
+        # the transposed view takes the (N, B) scores the kernel computes
+        # straight into the (B, N) rows top-k reads
+        pem_score(self._device_matrix(matrix),
+                  _to_device(np.asarray(q_pre, np.float32), self.device),
+                  _to_device(np.asarray(q_sup, np.float32), self.device),
+                  out=panel.T, **ages)
         return panel
 
     def score_panel(self, matrix, days_ago, plans):
         for p in plans:
             _require_days(p, days_ago)
-        panel = self._grouped_panel(matrix, days_ago, plans)
+        panel = self._panel(matrix, days_ago, plans)
         return np.ascontiguousarray(panel.T.cpu().numpy())
 
     def score_select(self, matrix, days_ago, plans, ks, *, mask=None,
@@ -616,7 +608,7 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
         widths = [selection_width(p, k, n) for p, k in zip(plans, ks)]
         # the reference's pow2 width bucket, clamped to the real row count
         w_stat = min(PlanStructure.of(plans, widths, n).width, n)
-        panel = self._grouped_panel(matrix, days_ago, plans)
+        panel = self._panel(matrix, days_ago, plans)
         if score_bias is not None:
             # hybrid lexical leg: additive fusion on the device-resident
             # panel, before mask/top-k

@@ -2,10 +2,15 @@
 
 Same name and arguments as ``repro.kernels.pem_score.ops.pem_score`` minus
 the TPU block sizes and interpret switch: a CPU tensor takes the plain
-version (``ref.py``), a CUDA tensor launches ``csrc/pem_score.cu``.  The
-kernel masks the ragged N and B edges itself, so nothing is padded.
+version (``ref.py``), a CUDA tensor launches ``csrc/pem_score.cu`` once.
+The kernel masks the ragged N, B and d edges itself, so nothing is padded.
 ``out=`` lets a caller receive the (N, B) scores in any strided view, such
 as the transpose of a (B, N) panel the top-k kernel reads directly.
+
+Keyword-only ``days_ago=`` (N,) with ``half_lives=`` (B,) replace
+``decay``: each plan then gets its own factor 1 / (1 + days / half_life)
+(+inf for a plan without decay), so a batch that mixes half-lives scores
+in one launch.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.pem_score import kernel
-from repro_torch.kernels.pem_score.ref import pem_score_ref
+from repro_torch.kernels.pem_score.ref import pem_score_days_ref, pem_score_ref
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -30,6 +35,8 @@ def pem_score(
     decay: Optional[torch.Tensor] = None,  # (N,) f32 or None (ones)
     *,
     out: Optional[torch.Tensor] = None,    # (N, B) f32, any strides
+    days_ago: Optional[torch.Tensor] = None,    # (N,) f32
+    half_lives: Optional[torch.Tensor] = None,  # (B,) f32, +inf = no decay
 ) -> torch.Tensor:
     """Batched modulated scores (N, B)."""
     n, d = matrix.shape
@@ -39,39 +46,54 @@ def pem_score(
              f"{tuple(q_sup.shape)}")
     _require(decay is None or tuple(decay.shape) == (n,),
              f"decay must be ({n},)")
+    _require((days_ago is None) == (half_lives is None),
+             "days_ago and half_lives go together")
+    _require(decay is None or days_ago is None,
+             "decay and days_ago/half_lives are exclusive")
+    _require(days_ago is None or (tuple(days_ago.shape) == (n,)
+                                  and tuple(half_lives.shape) == (b,)),
+             f"days_ago must be ({n},) and half_lives ({b},)")
     _require(out is None or (tuple(out.shape) == (n, b)
                              and out.dtype == torch.float32),
              f"out must be a float32 ({n}, {b}) tensor")
     if matrix.device.type == "cpu":
-        res = pem_score_ref(matrix, q_pre, q_sup,
-                            torch.ones(n) if decay is None else decay)
+        if days_ago is not None:
+            res = pem_score_days_ref(matrix, q_pre, q_sup, days_ago,
+                                     half_lives)
+        else:
+            res = pem_score_ref(matrix, q_pre, q_sup,
+                                torch.ones(n) if decay is None else decay)
         return res if out is None else out.copy_(res)
     _require(matrix.device.type == "cuda",
              f"no kernel for device {matrix.device}")
-    tensors = [q_pre, q_sup] + ([] if decay is None else [decay])
-    tensors += [] if out is None else [out]
+    factors = [t for t in (decay, days_ago, half_lives) if t is not None]
+    tensors = [q_pre, q_sup] + factors + ([] if out is None else [out])
     _require(all(t.device == matrix.device for t in tensors),
              "all tensors must be on the corpus's device")
     _require(matrix.dtype in (torch.float32, torch.bfloat16),
              f"corpus dtype {matrix.dtype} is neither float32 nor bfloat16")
     _require(all(t.dtype == torch.float32 for t in tensors),
-             "queries, decay and out must be float32")
-    _require(matrix.is_contiguous() and q_pre.is_contiguous()
-             and q_sup.is_contiguous()
-             and (decay is None or decay.is_contiguous()),
-             "corpus, queries and decay must be contiguous")
-    # the kernel reads the corpus four elements at a time
-    _require(d % 4 == 0
-             and matrix.data_ptr() % (4 * matrix.element_size()) == 0,
-             f"the kernel needs d % 4 == 0 (d={d}) and an aligned corpus")
+             "queries, decay, days_ago, half_lives and out must be float32")
+    _require(all(t.is_contiguous() for t in [matrix, q_pre, q_sup]
+                 + factors),
+             "corpus, queries and decay factors must be contiguous")
+    _require(all(t.data_ptr() % 16 == 0 for t in (decay, days_ago)
+                 if t is not None),
+             "decay and days_ago must be 16-byte aligned (TMA reads them)")
+    # TMA reads the corpus: 16-byte aligned base and row stride
+    _require(0 < d <= kernel.MAX_D
+             and (d * matrix.element_size()) % 16 == 0
+             and matrix.data_ptr() % 16 == 0,
+             f"the kernel needs d <= {kernel.MAX_D} with 16-byte rows "
+             f"(d % 4 == 0 for float32, d % 8 == 0 for bfloat16; d={d}) "
+             f"and a 16-byte aligned corpus")
     if out is None:
         out = torch.empty((n, b), dtype=torch.float32, device=matrix.device)
     if n and b:
-        kernel.launch(matrix, q_pre, q_sup, decay, out)
+        kernel.launch(matrix, q_pre, q_sup, decay, days_ago, half_lives, out)
         pem_score.launches += 1
     return out
 
 
 #: kernel launches since the last reset (the plain CPU path never counts)
 pem_score.launches = 0
-

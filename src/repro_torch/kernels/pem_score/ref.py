@@ -1,16 +1,28 @@
 """Plain PyTorch version of the fused PEM scoring kernel.
 
-    scores[n, b] = decay[n] * (M[n] . q_pre[:, b]) + (M[n] . q_sup[:, b])
+    scores[n, b] = f[n, b] * (M[n] . q_pre[:, b]) + (M[n] . q_sup[:, b])
 
 ``q_pre``/``q_sup`` are the two effective vectors every plan folds into
-(``core.modulations.fold_plans``); ``decay`` is the reciprocal temporal
-factor 1/(1 + days/half_life), or ones.  Float32 accumulation whatever the
-corpus dtype, like the kernel.
+(``core.modulations.fold_plans``).  The factor ``f`` takes one of two
+forms: :func:`pem_score_ref` takes one (N,) column shared by every plan
+(the reciprocal temporal factor 1/(1 + days/half_life), or ones), and
+:func:`pem_score_days_ref` computes each plan's own column from the rows'
+ages and the plans' half-lives (+inf for a plan without decay gives
+exactly 1).  Float32 accumulation whatever the corpus dtype, like the
+kernel.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _products(matrix, q_pre, q_sup):
+    # full f32 products on the card: TF32 keeps ~3 digits and would miss
+    # the 1e-5 tolerance this version is the yardstick for
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = matrix.to(torch.float32)
+    return m @ q_pre.to(torch.float32), m @ q_sup.to(torch.float32)
 
 
 def pem_score_ref(
@@ -19,10 +31,24 @@ def pem_score_ref(
     q_sup: torch.Tensor,    # (d, B) post-decay (suppress) effective vectors
     decay: torch.Tensor,    # (N,)   temporal factor (ones if no decay)
 ) -> torch.Tensor:          # (N, B) float32 scores
-    # full f32 products on the card: TF32 keeps ~3 digits and would miss
-    # the 1e-5 tolerance this version is the yardstick for
-    torch.backends.cuda.matmul.allow_tf32 = False
-    m = matrix.to(torch.float32)
-    pre = m @ q_pre.to(torch.float32)
-    sup = m @ q_sup.to(torch.float32)
+    pre, sup = _products(matrix, q_pre, q_sup)
     return decay.to(torch.float32)[:, None] * pre + sup
+
+
+def decay_factors(days_ago: torch.Tensor,
+                  half_lives: torch.Tensor) -> torch.Tensor:
+    """(N, B) factors 1 / (1 + days / half_life) in f32, each operation
+    correctly rounded, as the reference computes one column in numpy."""
+    days = days_ago.to(torch.float32)[:, None]
+    return 1.0 / (1.0 + days / half_lives.to(torch.float32)[None, :])
+
+
+def pem_score_days_ref(
+    matrix: torch.Tensor,      # (N, d) corpus embeddings (f32 or bf16)
+    q_pre: torch.Tensor,       # (d, B)
+    q_sup: torch.Tensor,       # (d, B)
+    days_ago: torch.Tensor,    # (N,) row ages in days
+    half_lives: torch.Tensor,  # (B,) per-plan half-lives, +inf for none
+) -> torch.Tensor:             # (N, B) float32 scores
+    pre, sup = _products(matrix, q_pre, q_sup)
+    return decay_factors(days_ago, half_lives) * pre + sup

@@ -211,3 +211,51 @@ def test_merged_pool_mmr_is_one_launch_for_the_cohort():
     want = RB.score_select_segments("jit-jax", ref.segments, r_div, ks,
                                     now=NOW)
     _assert_same(got, want)
+
+
+MIXED_DECAY = {
+    "interleaved": ["decay:7", "decay:21", "", "decay:30", "decay:7", "",
+                    "decay:21", "decay:30"],
+    "grouped": ["decay:7", "decay:7", "decay:21", "decay:21", "decay:30",
+                "decay:30", "", ""],
+    "reversed": ["", "decay:30", "decay:21", "decay:7"],
+}
+
+
+def _mixed_plans(order):
+    topics = ["how the retrieval system works", "auth token flow",
+              "rendering pipeline", "database migration"]
+    toks = [f"similar:{topics[j % len(topics)]} {dec}".strip()
+            for j, dec in enumerate(MIXED_DECAY[order])]
+    return ([r_parse(t, RHash(D)) for t in toks],
+            [t_parse(t, THash(D)) for t in toks])
+
+
+@pytest.mark.parametrize("order", sorted(MIXED_DECAY))
+def test_mixed_half_lives_score_in_one_launch_in_plan_order(order,
+                                                            monkeypatch):
+    """A batch mixing decay:7, decay:21, decay:30 and no decay: the panel
+    equals the reference PallasBackend's (which groups by half-life) in
+    plan order, and the port calls the scoring kernel once for it."""
+    from repro_torch.kernels.pem_score import ops
+
+    mat, days, _ = _corpus(seed=17)
+    r_plans, t_plans = _mixed_plans(order)
+    calls = []
+    real = ops.pem_score
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ops, "pem_score", counted)
+    backend = TB.HopperBackend("cpu")
+    got = backend.score_panel(mat, days, t_plans)
+    want = RB.get_backend("pallas").score_panel(mat, days, r_plans)
+    np.testing.assert_allclose(got, want, atol=TOL)
+    assert len(calls) == 1
+    ks = [5] * len(t_plans)
+    got_sel = backend.score_select(mat, days, t_plans, ks)
+    assert len(calls) == 2
+    _assert_same(got_sel, RB.get_backend("pallas").score_select(
+        mat, days, r_plans, ks))

@@ -23,7 +23,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.mmr.ops import NEG, mmr_select  # noqa: E402
 from repro_torch.kernels.mmr.ref import mmr_ref  # noqa: E402
 from repro_torch.kernels.pem_score.ops import pem_score  # noqa: E402
-from repro_torch.kernels.pem_score.ref import pem_score_ref  # noqa: E402
+from repro_torch.kernels.pem_score.ref import (  # noqa: E402
+    pem_score_days_ref, pem_score_ref)
 from repro_torch.kernels.topk.ops import topk  # noqa: E402
 from repro_torch.kernels.topk.ref import topk_ref  # noqa: E402
 
@@ -63,6 +64,126 @@ def test_pem_score_matches_plain(cuda, b, dtype):
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
         torch.testing.assert_close(panel.T, want, atol=tol, rtol=tol)
     assert pem_score.launches == before + 4
+
+
+def _check_pem(m, qp, qs, tol, *, decay=None, days=None, hl=None,
+               scale=None):
+    """One kernel call into a fresh (N, B) tensor and one into a (B, N)
+    panel's transpose, each against the plain version; each call is one
+    launch.  ``scale`` (N,) widens the tolerance row by row, for rows
+    whose products are that large."""
+    n, b = m.shape[0], qp.shape[1]
+    if days is not None:
+        want = pem_score_days_ref(m, qp, qs, days, hl)
+        kw = dict(days_ago=days, half_lives=hl)
+    else:
+        want = pem_score_ref(m, qp, qs, torch.ones(n, device=m.device)
+                             if decay is None else decay)
+        kw = {}
+    before = pem_score.launches
+    got = pem_score(m, qp, qs, decay, **kw)
+    panel = torch.full((b, n), float("nan"), device=m.device)
+    pem_score(m, qp, qs, decay, out=panel.T, **kw)
+    torch.cuda.synchronize()
+    assert pem_score.launches == before + 2
+    bound = tol + tol * want.abs()
+    if scale is not None:
+        bound = bound * torch.clamp(scale, min=1.0)[:, None]
+    for res in (got, panel.T):
+        err = (res - want).abs()
+        assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 32, 33, 64, 130])
+def test_pem_score_ragged_rows_every_width(cuda, b):
+    """240,001 rows (a ragged last tile) at every product width and query
+    chunking the kernel has: 8, 16, 32, 64 columns; 1, 2, 3 or 5 chunks;
+    the split query resident or restaged per tile."""
+    gen = torch.Generator(device=cuda).manual_seed(100 + b)
+    n, d = 240_001, 128
+    m = _unit_rows(gen, n, d, device=cuda)
+    qp = torch.randn(d, b, generator=gen, device=cuda)
+    qs = torch.randn(d, b, generator=gen, device=cuda) * 0.3
+    decay = 1.0 / (1.0 + torch.rand(n, generator=gen, device=cuda) * 10)
+    _check_pem(m, qp, qs, 1e-5, decay=decay)
+    _check_pem(m.to(torch.bfloat16), qp, qs, 2e-2, decay=decay)
+
+
+@pytest.mark.parametrize("d,b", [(64, 9), (68, 3), (68, 33), (4, 2)])
+def test_pem_score_narrow_depths(cuda, d, b):
+    """Depths short of a 32-wide box (the ragged d edge, zero-filled by
+    TMA)."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + b)
+    n = 50_017
+    m = _unit_rows(gen, n, d, device=cuda)
+    qp = torch.randn(d, b, generator=gen, device=cuda)
+    qs = torch.randn(d, b, generator=gen, device=cuda) * 0.3
+    _check_pem(m, qp, qs, 1e-5)
+    if d % 8 == 0:
+        _check_pem(m.to(torch.bfloat16), qp, qs, 2e-2)
+    else:
+        with pytest.raises(ValueError, match="16-byte rows"):
+            pem_score(m.to(torch.bfloat16), qp, qs)
+
+
+@pytest.mark.parametrize("b", [1, 32])
+def test_pem_score_large_rows_keep_f32_accuracy(cuda, b):
+    """Rows with norms up to 1e3: plain TF32 would be off by ~1e-3 of the
+    row's scale there; the split (hi + lo) products hold the f32
+    tolerance, scaled by the row's norm as any f32 sum's error is."""
+    gen = torch.Generator(device=cuda).manual_seed(7 + b)
+    n, d = 100_003, 128
+    norms = 10.0 ** (torch.rand(n, generator=gen, device=cuda) * 3)
+    m = _unit_rows(gen, n, d, device=cuda) * norms[:, None]
+    qp = torch.randn(d, b, generator=gen, device=cuda) / d ** 0.5
+    qs = torch.randn(d, b, generator=gen, device=cuda) * 0.1 / d ** 0.5
+    _check_pem(m, qp, qs, 1e-5, scale=norms)
+
+
+@pytest.mark.parametrize("b", [5, 32, 33])
+def test_pem_score_per_plan_half_lives(cuda, b):
+    """The days_ago / half_lives form, with +inf (no decay) columns, in
+    one launch, against its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(300 + b)
+    n, d = 240_001, 128
+    m = _unit_rows(gen, n, d, device=cuda)
+    qp = torch.randn(d, b, generator=gen, device=cuda)
+    qs = torch.randn(d, b, generator=gen, device=cuda) * 0.3
+    days = torch.rand(n, generator=gen, device=cuda) * 180
+    hl = torch.tensor([7.0, 14.0, 30.0, 90.0, float("inf")],
+                      device=cuda).repeat(b)[:b]
+    _check_pem(m, qp, qs, 1e-5, days=days, hl=hl)
+    _check_pem(m.to(torch.bfloat16), qp, qs, 2e-2, days=days, hl=hl)
+    # a +inf column is exactly the no-decay score
+    out = pem_score(m, qp, qs, days_ago=days, half_lives=hl)
+    plain = pem_score(m, qp, qs)
+    torch.cuda.synchronize()
+    inf = torch.isinf(hl)
+    assert torch.equal(out[:, inf], plain[:, inf])
+
+
+def test_pem_score_decay_factors_are_bit_equal(cuda):
+    """With every row e_0, q_pre[0] = 1 and q_sup = 0 the kernel returns
+    its per-plan factor itself: it equals the correctly rounded f32
+    1 / (1 + days / half_life) bit for bit, over ages from 0 to 10^6 days
+    and half-lives from 0.3 to 365 and +inf."""
+    from repro_torch.kernels.pem_score.ref import decay_factors
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n, d = 240_001, 128
+    days = torch.cat([torch.rand(n - 4, generator=gen, device=cuda) * 400,
+                      torch.tensor([0.0, 1e-3, 7.0, 1e6], device=cuda)])
+    hl = torch.tensor([7.0, 14.0, 30.0, 90.0, float("inf"), 0.3, 21.0,
+                       365.0, 1.5, 1e-3], device=cuda)
+    m = torch.zeros(n, d, device=cuda)
+    m[:, 0] = 1.0
+    qp = torch.zeros(d, hl.numel(), device=cuda)
+    qp[0] = 1.0
+    got = pem_score(m, qp, torch.zeros_like(qp), days_ago=days,
+                    half_lives=hl)
+    want = decay_factors(days, hl)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("b,n,k", [(32, 240_000, 2048), (1, 240_000, 2048),
@@ -252,3 +373,33 @@ def _assert_same_ranking(gi, gv, wi, wv, tol=1e-5):
     for p in np.flatnonzero(gi != wi):
         near = np.flatnonzero(np.abs(wv - wv[p]) <= tol)
         assert gi[p] in set(wi[near].tolist()), (p, gi[p], wi[p])
+
+
+def test_hopper_backend_scores_mixed_half_lives_in_one_launch(cuda):
+    """A batch mixing decay:7, decay:30 and no decay: one scoring launch
+    per score_select on the card, rankings equal to the plain chain."""
+    from repro_torch.core.backends import HopperBackend
+    from repro_torch.core.grammar import parse
+    from repro_torch.embed import HashEmbedder
+
+    rng = np.random.default_rng(5)
+    n, d = 50_000, 128
+    mat = rng.standard_normal((n, d)).astype(np.float32)
+    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
+    days = rng.uniform(0, 120, n).astype(np.float32)
+    emb = HashEmbedder(d)
+    plans = [parse(t, emb) for t in (
+        "similar:server lifecycle decay:7",
+        "similar:auth token",
+        "similar:rendering pipeline decay:30 diverse pool:100",
+        "similar:database migration decay:7 suppress:website design",
+        "similar:identity provenance decay:30",
+    )]
+    ks = [20, 10, 30, 15, 25]
+    backend = HopperBackend("cuda")
+    before = pem_score.launches
+    got = backend.score_select(mat, days, plans, ks)
+    assert pem_score.launches == before + 1
+    want = HopperBackend("cpu").score_select(mat, days, plans, ks)
+    for (gi, gv), (wi, wv) in zip(got, want):
+        _assert_same_ranking(gi, gv, wi, wv)

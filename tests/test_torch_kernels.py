@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core.backends import _decay_column as r_decay_column  # noqa: E402
 from repro.core.modulations import mmr_select_np  # noqa: E402
 from repro.kernels.mmr.ops import mmr_select as jax_mmr_select  # noqa: E402
 from repro.kernels.mmr.ref import mmr_ref as jax_mmr_ref  # noqa: E402
@@ -24,6 +25,7 @@ from repro.kernels.topk.ops import topk as jax_topk  # noqa: E402
 from repro.kernels.topk.ref import topk_ref as jax_topk_ref  # noqa: E402
 from repro_torch.kernels.mmr.ops import NEG, mmr_select  # noqa: E402
 from repro_torch.kernels.pem_score.ops import pem_score  # noqa: E402
+from repro_torch.kernels.pem_score.ref import decay_factors  # noqa: E402
 from repro_torch.kernels.topk.ops import topk  # noqa: E402
 
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
@@ -69,6 +71,66 @@ def test_pem_score_writes_a_transposed_view():
     panel = torch.full((4, 300), float("nan"))
     pem_score(m, qp, qs, None, out=panel.T)
     np.testing.assert_allclose(panel.numpy(), (m @ qp).T.numpy(), atol=1e-5)
+
+
+HALF_LIVES = [7.0, np.inf, 21.0, 30.0, 0.3]
+
+
+@pytest.mark.parametrize("n,d,b", [(300, 32, 5), (1000, 64, 7),
+                                   (2049, 128, 10)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_pem_score_half_lives_match_pallas_group_by_group(n, d, b, dtype):
+    """The per-plan form (days_ago, half_lives) in one call equals the
+    Pallas kernel run once per half-life group with that group's decay
+    column, column for column (+inf half-life: the kernel's no-decay
+    call)."""
+    rng = np.random.default_rng(n + d + b)
+    jdt, tdt, tol = DTYPES[dtype]
+    m = _unit_rows(rng, n, d)
+    qp = rng.standard_normal((d, b)).astype(np.float32)
+    qs = (rng.standard_normal((d, b)) * 0.3).astype(np.float32)
+    days = rng.uniform(0.0, 90.0, n).astype(np.float32)
+    hl = np.array([HALF_LIVES[j % len(HALF_LIVES)] for j in range(b)],
+                  np.float32)
+    got = pem_score(torch.from_numpy(m).to(tdt), torch.from_numpy(qp),
+                    torch.from_numpy(qs), days_ago=torch.from_numpy(days),
+                    half_lives=torch.from_numpy(hl)).numpy()
+    for h in np.unique(hl):
+        cols = np.flatnonzero(hl == h)
+        decay = (None if np.isinf(h) else
+                 jnp.asarray(r_decay_column(days, float(h))))
+        want = jax_pem_score(jnp.asarray(m, jdt), jnp.asarray(qp[:, cols]),
+                             jnp.asarray(qs[:, cols]), decay,
+                             interpret=True, block_n=256, block_b=128)
+        np.testing.assert_allclose(got[:, cols], np.asarray(want), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("half_life", [7.0, 14.0, 21.0, 30.0, 90.0, 0.3])
+def test_decay_factors_are_bit_equal_to_the_reference_column(half_life):
+    """The per-plan factor (computed on the card in the kernel's epilogue
+    with correctly rounded f32 operations) equals the reference's numpy
+    ``_decay_column`` bit for bit; +inf gives exactly 1."""
+    rng = np.random.default_rng(int(half_life * 10))
+    days = np.concatenate([rng.uniform(0.0, 400.0, 20_000),
+                           [0.0, 1e-3, 1e6]]).astype(np.float32)
+    hl = np.array([half_life, np.inf], np.float32)
+    got = decay_factors(torch.from_numpy(days), torch.from_numpy(hl)).numpy()
+    want = np.asarray(r_decay_column(days, half_life), np.float32)
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(got[:, 0].view(np.uint32),
+                                  want.view(np.uint32))
+    assert np.all(got[:, 1] == 1.0)
+
+
+def test_pem_score_decay_forms_are_exclusive():
+    m = torch.zeros((10, 8))
+    q = torch.zeros((8, 2))
+    with pytest.raises(ValueError, match="exclusive"):
+        pem_score(m, q, q, torch.ones(10), days_ago=torch.zeros(10),
+                  half_lives=torch.ones(2))
+    with pytest.raises(ValueError, match="together"):
+        pem_score(m, q, q, days_ago=torch.zeros(10))
 
 
 def _check_topk(s: np.ndarray, k: int, block_n: int):
