@@ -28,10 +28,25 @@ reference package.  Prints one JSON object per line, in order:
    threads through ``BatchedRetrievalEngine`` and 8 over mixed
    half-lives (one pem_score launch a batch); every ranking held against
    the ``fused-numpy`` oracle on the same store;
+   then the same service with ``shard_group(4)`` (thread workers on the
+   card): the composed query through ``flex_search`` and the 64 requests,
+   both fanned out to the group by the attached engine;
 5. the 1M phase: 1,000,448 seeded chunks in four segments with tombstones
    through ``store_from_arrays``, two composed queries against the oracle;
-6. the ``kernels`` line (launch counts from the main path's run);
-7. ``{"ok": true, "device": {...}}``, the last line.
+6. ``sharded_1m``: the same store through ``ShardedBackend`` (four shards
+   on one card, or one a card where there are four): ids equal to the
+   monolithic ``HopperBackend``'s, rankings to the oracle's, no diverse
+   pool on the host;
+7. ``pem_sharded``: ``make_pem_topk`` in a one-rank NCCL group at
+   1,000,448 x 128, B = 32, k = 500 against ``pem_topk_reference``, and
+   four in-process shards of the same rows merged shard-major, bit-equal
+   to the one rank;
+8. ``shard_group_1m``: ``ProcessGroup`` over the same rows, four shards:
+   spawned workers in f32, then thread workers in f32, f32b and bf16
+   (f32 against the oracle, f32b and bf16 by their top-100 overlap);
+9. the ``kernels`` line (launch counts from the main path's run, and each
+   path's own run beside them);
+10. ``{"ok": true, "device": {...}}``, the last line.
 
 Any failure raises.  Rankings must equal the oracle's id for id, scores
 agree to 1e-5; a candidate pool must equal the oracle's as a set except
@@ -674,7 +689,6 @@ def phase_main_path(torch) -> dict:
            "oracle_match": True,
            "ranking_near_ties": near_ties, "pool_check": pool}
     emit(out)
-    svc.close()
     if any(v == 0 for v in counts.values()):
         raise AssertionError(f"a kernel never ran on the main path: {counts}")
     if fused_stats["host_pool_transfers"]:
@@ -682,6 +696,13 @@ def phase_main_path(torch) -> dict:
     if mixed["pem_score_launches"] != mixed["batches"]:
         raise AssertionError(f"mixed half-lives: {mixed['batches']} batches "
                              f"but {mixed['pem_score_launches']} K1 launches")
+    try:
+        out["service_shard_group"] = service_shard_group(torch, svc, conn,
+                                                         sql, reqs)
+        emit({"phase": "service_shard_group_240k", "chunks": MAIN_N,
+              **out["service_shard_group"]})
+    finally:
+        svc.close()
     return out
 
 
@@ -723,9 +744,10 @@ def phase_1m(torch) -> dict:
     out["launches"] = {k: after[k] - before[k] for k in after}
     out["device_mmr"] = cache.fused.device_mmr
     out["host_pool_transfers"] = cache.fused.host_pool_transfers
+    oracle = {}
     for name, tokens in queries:  # the oracle, on the same store
         t0 = time.perf_counter()
-        want = cache.search(tokens, now=NOW, engine="fused")
+        want = oracle[name] = cache.search(tokens, now=NOW, engine="fused")
         out[name]["oracle_ms"] = (time.perf_counter() - t0) * 1e3
         out[name]["ranking_near_ties"] = check_ranking(
             f"1M {name}", served[name], want)
@@ -735,7 +757,313 @@ def phase_1m(torch) -> dict:
     if not out["launches"]["mmr"] or out["host_pool_transfers"]:
         raise AssertionError("the merged-pool MMR path did not run on the "
                              "card")
+    # the 1M store, its rows and the rankings the next phases are held to
+    return {"cache": cache, "ids": np.arange(SCALE1M_N, dtype=np.int64),
+            "matrix": mat, "timestamps": ts, "dead": np.flatnonzero(~live),
+            "queries": queries, "served": served, "oracle": oracle}
+
+
+def _check_launched(path: str, counts: dict, kernels) -> None:
+    """Fail unless every kernel of ``path`` launched in its run."""
+    idle = [k for k in kernels if not counts.get(k)]
+    if idle:
+        raise AssertionError(f"{path}: {idle} never launched: {counts}")
+
+
+def _shard_devices(torch) -> list:
+    """Four shards: one a card where there are four, else four on one."""
+    if DEVICE == "cuda" and torch.cuda.device_count() >= 4:
+        return [f"cuda:{s}" for s in range(4)]
+    return [DEVICE if DEVICE == "cpu" else "cuda:0"] * 4
+
+
+def phase_sharded_1m(torch, one_m) -> dict:
+    """The 1M store through ``ShardedBackend``: four contiguous row blocks
+    per segment, the Hopper chain on every shard, the shard-major merge,
+    and the merged-pool MMR on the lead device."""
+    from repro_torch.core.backends import ShardedBackend
+
+    cache = one_m["cache"]
+    devices = _shard_devices(torch)
+    backend = ShardedBackend(devices)
+    torch.cuda.reset_peak_memory_stats()
+    before = cache.fused.stats()
+    out = {"phase": "sharded_1m", "chunks": SCALE1M_N,
+           "segments": cache.store.n_segments, "devices": devices}
+    for name, tokens in one_m["queries"]:
+        cache.search(tokens, now=NOW, engine=backend)  # uploads
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = cache.search(tokens, now=NOW, engine=backend)
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        _check_launched(f"sharded_1m {name}", counts,
+                        ("pem_score", "topk") + (("mmr",) if "diverse"
+                                                 in tokens else ()))
+        mono = one_m["served"][name]
+        if [i for i, _ in got] != [i for i, _ in mono]:
+            raise AssertionError(f"sharded_1m {name}: ids differ from the "
+                                 f"monolithic HopperBackend's")
+        out[name] = {
+            "warm_ms": warm, "launches_per_query": counts,
+            "max_abs_diff_vs_monolith": max(
+                abs(float(a[1]) - float(b[1])) for a, b in zip(got, mono)),
+            "ranking_near_ties": check_ranking(f"sharded_1m {name}", got,
+                                               one_m["oracle"][name]),
+            "oracle_match": True}
+    after = cache.fused.stats()
+    out["device_mmr"] = after["device_mmr"] - before["device_mmr"]
+    out["host_pool_transfers"] = (after["host_pool_transfers"]
+                                  - before["host_pool_transfers"])
+    out["device_cache"] = backend.device_cache_stats()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["launches"] = {k: sum(out[name]["launches_per_query"][k]
+                              for name, _ in one_m["queries"])
+                       for k in _counts()}
+    emit(out)
+    if out["host_pool_transfers"] or not out["device_mmr"]:
+        raise AssertionError("sharded_1m: a diverse pool crossed to the host")
+    del backend
     return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_pem_sharded(torch) -> dict:
+    """``make_pem_topk`` in a world-1 NCCL group at 1,000,448 x 128, B = 32,
+    k = 500, against ``pem_topk_reference``; the same rows split over four
+    in-process shards and merged shard-major must give its indices bit for
+    bit, and the collective merge of the one rank must be the identity."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.pem_sharded import (make_pem_topk,
+                                              merge_shard_major,
+                                              pem_topk_reference,
+                                              union_merge_topk)
+    from repro_torch.kernels.pem_score.ops import pem_score
+    from repro_torch.kernels.topk.ops import topk
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, d, b, k, hl = SCALE1M_N, 128, 32, 500, 30.0
+    corpus = torch.randn(n, d, generator=gen, device=dev)
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    days = torch.rand(n, generator=gen, device=dev) * 180
+    qp = torch.randn(d, b, generator=gen, device=dev) / d ** 0.5
+    qs = torch.randn(d, b, generator=gen, device=dev) * 0.1
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        fn = make_pem_topk(k, half_life=hl)
+        _reset_counts()
+        idx, val = fn(corpus, days, qp, qs)
+        merged_i, merged_v = union_merge_topk(val, idx, k)
+        torch.cuda.synchronize()
+        counts = _counts()
+        if not (torch.equal(merged_i, idx) and torch.equal(merged_v, val)):
+            raise AssertionError("pem_sharded: the one-rank merge is not "
+                                 "the identity")
+        ms = time_ms(torch, lambda: fn(corpus, days, qp, qs), 20)
+    finally:
+        dist.destroy_process_group()
+    _check_launched("pem_sharded", counts, ("pem_score", "topk"))
+    ri, rv = pem_topk_reference(corpus, days, qp, qs, k, half_life=hl)
+    err = float((val - rv).abs().max())
+    # K1's split-TF32 products are f32-accurate, not the plain f32
+    # product's bits: where the picks differ, the kernel's pick must score
+    # (by the reference's arithmetic) within the tolerance of the
+    # reference's pick at that rank
+    rows, pos = torch.nonzero(idx != ri, as_tuple=True)
+    picked = idx[rows, pos]
+    m = corpus[picked]
+    their = (1.0 / (1.0 + days[picked] / hl)) * (m * qp.T[rows]).sum(1) \
+        + (m * qs.T[rows]).sum(1)
+    near = float((their - rv[rows, pos]).abs().max()) if rows.numel() else 0.0
+    unique = all(len(set(r.tolist())) == k for r in idx.cpu())
+    if err > TOL or near > TOL or not unique:
+        raise AssertionError(f"pem_sharded: differs from the reference "
+                             f"(max error {err}, picks off by {near})")
+    # four in-process shards of the same rows, merged shard-major
+    n_local = n // 4
+    cand_v, cand_i = [], []
+    for s in range(4):
+        blk = slice(s * n_local, (s + 1) * n_local)
+        panel = torch.empty((b, n_local), device=dev)
+        pem_score(corpus[blk], qp, qs, days_ago=days[blk],
+                  half_lives=torch.full((b,), hl, device=dev), out=panel.T)
+        v, i = topk(panel, k)
+        cand_v.append(v)
+        cand_i.append(i.long() + s * n_local)
+    si, sv = merge_shard_major(torch.stack(cand_v), torch.stack(cand_i), k)
+    torch.cuda.synchronize()
+    if not (torch.equal(si, idx) and torch.equal(sv, val)):
+        raise AssertionError("pem_sharded: four shards differ from one "
+                             "rank's bits")
+    out = {"phase": "pem_sharded", "n": n, "d": d, "b": b, "k": k,
+           "world_size": 1, "backend": "nccl" if DEVICE == "cuda" else "gloo",
+           "launches": counts, "max_abs_err": err,
+           "positions_in_near_ties": int(rows.numel()),
+           "near_tie_max_gap": near,
+           "four_shards_bit_equal": True, "ms": ms,
+           "plain_ms": time_ms(torch, lambda: pem_topk_reference(
+               corpus, days, qp, qs, k, half_life=hl), 5)}
+    emit(out)
+    return out
+
+
+def _group_launches(g, reset=False) -> dict:
+    """Kernel launches of a shard group's workers: one count for the
+    coordinator's process (inline and thread workers share it), the sum
+    of the workers' own processes for the process transport."""
+    if g.transport != "process":
+        counts = _counts()
+        if reset:
+            _reset_counts()
+        return counts
+    total: dict = {}
+    for row in g._clients:
+        for client in row:
+            for key, n in client.call("kernel_launches", reset).items():
+                total[key] = total.get(key, 0) + n
+    return total
+
+
+def _overlap(a, b, k=100) -> int:
+    return len({int(i) for i, _ in a[:k]} & {int(i) for i, _ in b[:k]})
+
+
+def phase_shard_group_1m(torch, one_m) -> dict:
+    """``ProcessGroup`` over the same 1,000,448 rows, four shards: spawned
+    GPU workers (``process``) in f32, then ``thread`` workers in f32, f32b
+    and bf16; f32 held to the fused-numpy oracle, f32b and bf16 by their
+    top-100 overlap with f32 (the bounds of the reference's tests: 90 and
+    75 of 100)."""
+    from repro_torch.core.grammar import parse
+    from repro_torch.dist.procgroup import ProcessGroup
+
+    emb = one_m["cache"].embed_fn
+    plans = {name: parse(tokens, emb) for name, tokens in one_m["queries"]}
+    out = {"phase": "shard_group_1m", "chunks": SCALE1M_N, "n_shards": 4}
+    f32_rank = {}
+    for transport, dtype in (("process", "f32"), ("thread", "f32"),
+                             ("thread", "f32b"), ("thread", "bf16")):
+        t0 = time.perf_counter()
+        g = ProcessGroup.build(
+            one_m["ids"], one_m["matrix"], one_m["timestamps"],
+            normalized=True, n_shards=4, transport=transport, dtype=dtype,
+            engine="hopper", device=DEVICE)
+        try:
+            g.delete(one_m["dead"])
+            row = {"build_s": time.perf_counter() - t0}
+            for name, plan in plans.items():
+                g.search_plan(plan, now=NOW)  # uploads
+                _group_launches(g, reset=True)
+                t0 = time.perf_counter()
+                got = g.search_plan(plan, now=NOW)
+                warm = (time.perf_counter() - t0) * 1e3
+                counts = _group_launches(g)
+                _check_launched(f"shard_group_1m {transport} {dtype}",
+                                counts, ("pem_score", "topk"))
+                res = {"warm_ms": warm, "launches_per_query": counts}
+                if dtype == "f32":
+                    res["ranking_near_ties"] = check_ranking(
+                        f"shard_group {transport} {name}", got,
+                        one_m["oracle"][name])
+                    res["oracle_match"] = True
+                    f32_rank[name] = got
+                else:
+                    res["top100_overlap_with_f32"] = _overlap(
+                        got, f32_rank[name])
+                    need = 90 if dtype == "f32b" else 75
+                    if res["top100_overlap_with_f32"] < need:
+                        raise AssertionError(
+                            f"shard_group {dtype} {name}: top-100 overlap "
+                            f"{res['top100_overlap_with_f32']} < {need}")
+                row[name] = res
+            # both queries in one batch: one pem_score launch a shard
+            _group_launches(g, reset=True)
+            g.search_plan_batch(list(plans.values()), now=NOW)
+            row["pem_score_launches_per_batch"] = _group_launches(
+                g)["pem_score"]
+            if row["pem_score_launches_per_batch"] != 4:
+                raise AssertionError(
+                    f"shard_group {transport} {dtype}: "
+                    f"{row['pem_score_launches_per_batch']} pem_score "
+                    "launches for one batch over four shards")
+            st = g.stats()
+            row["shards"] = [{k: s[k] for k in (
+                "shard", "device", "rows", "live", "device_bytes",
+                "scoring_bytes", "last_pass_ms", "corpus_streams")}
+                for s in st["shards"]]
+            row["last_fanout_ms"] = st["last_fanout_ms"]
+            row["last_merge_ms"] = st["last_merge_ms"]
+        finally:
+            g.close()
+        out[f"{transport}_{dtype}"] = row
+    out["launches"] = {k: sum(out[key][name]["launches_per_query"][k]
+                              for key in out if key.startswith(("process",
+                                                                "thread"))
+                              for name in plans)
+                       for k in _counts()}
+    emit(out)
+    return out
+
+
+def service_shard_group(torch, svc, conn, sql, reqs) -> dict:
+    """The 240k service with ``shard_group(4)`` on the card: the composed
+    query through ``flex_search`` and the engine requests, both fanned
+    out to the group by the attached engine, every ranking held to the
+    fused-numpy oracle."""
+    from repro_torch.core.materializer import Materializer
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    g = svc.shard_group(4)
+    attach_s = time.perf_counter() - t0
+    eng = svc.serving(max_batch=32)
+    if eng.shard_group is not g:
+        raise AssertionError("the engine does not fan out to the group")
+    res = svc.flex_search(sql)
+    if not res.ok:
+        raise RuntimeError(f"flex_search through the group: {res.error}")
+    t0 = time.perf_counter()
+    res = svc.flex_search(sql)
+    sql_warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(max_workers=32) as ex:
+        served = list(ex.map(lambda q: svc.search(q, 10), reqs))
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = _counts()
+    stats = eng.stats()
+    _check_launched("service shard_group", counts, ("pem_score", "topk"))
+    cols, want_rows = Materializer(conn, svc.cache, now=NOW,
+                                   engine="fused").execute(sql)
+    if res.columns != cols:
+        raise AssertionError(f"columns {res.columns} vs {cols}")
+    near = check_ranking("flex_search via shard_group", res.rows, want_rows)
+    for q, got in zip(reqs, served):
+        want = svc.cache.search(q, now=NOW, engine="fused")[:10]
+        near += check_ranking(f"shard_group engine {q!r}", got, want)
+    st = g.stats()
+    return {"n_shards": st["n_shards"], "transport": st["transport"],
+            "dtype": st["dtype"], "attach_s": attach_s,
+            "sql_warm_ms": sql_warm_ms, "requests": len(reqs),
+            "engine_wall_ms": wall * 1e3, "qps": len(reqs) / wall,
+            "batches_served": stats["batches_served"],
+            "launches": counts, "oracle_match": True,
+            "ranking_near_ties": near,
+            "shards": [{k: s[k] for k in ("shard", "device", "live",
+                                          "device_bytes", "last_pass_ms")}
+                       for s in st["shards"]]}
 
 
 def main() -> None:
@@ -753,7 +1081,13 @@ def main() -> None:
     k2 = phase_topk(torch)
     k3 = phase_mmr(torch)
     main_path = phase_main_path(torch)
-    phase_1m(torch)
+    one_m = phase_1m(torch)
+    paths = {"main_path_240k": main_path["launches"],
+             "sharded_1m": phase_sharded_1m(torch, one_m)["launches"],
+             "pem_sharded": phase_pem_sharded(torch)["launches"],
+             "shard_group_1m": phase_shard_group_1m(torch, one_m)["launches"],
+             "service_shard_group_240k":
+                 main_path["service_shard_group"]["launches"]}
 
     counts = main_path["launches"]
     picks = [
@@ -772,7 +1106,10 @@ def main() -> None:
          "launches": n, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-         "shape": {k: row[k] for k in ("b", "n", "d", "k") if k in row}}
+         "shape": {k: row[k] for k in ("b", "n", "d", "k") if k in row},
+         # each path's own run, counts zeroed just before it
+         "launches_by_path": {path: c.get(kname, 0)
+                              for path, c in paths.items()}}
         for kname, src, rep, row, n in picks]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -57,6 +57,7 @@ from repro_torch.core import modulations as M
 __all__ = [
     "ExecutionBackend",
     "HopperBackend",
+    "ShardedBackend",
     "PlanStructure",
     "get_backend",
     "register_backend",
@@ -182,6 +183,45 @@ def _to_device(array: np.ndarray, device):
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
+def _corpus_tensor(matrix: np.ndarray, device):
+    """A corpus matrix on ``device``: float32 rows, or -- for a uint16
+    array of :func:`~repro_torch.core.segments.pack_bf16` codes -- the same
+    bits viewed as bfloat16 (``tensor.to(torch.bfloat16)`` would round to
+    nearest, not truncate as the codes do)."""
+    import torch
+
+    if matrix.dtype == np.uint16:
+        return _to_device(matrix.view(np.int16), device).view(torch.bfloat16)
+    return _to_device(np.asarray(matrix, np.float32), device)
+
+
+def _kernel_device(device, owner: str):
+    """``device`` as a torch.device the kernels run on: a card with its
+    index, or the CPU (their plain versions).  Raises on a machine
+    without a card when a card is asked for."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{owner}: no kernels for device {dev}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{owner}: no CUDA device; pass device='cpu' to run the "
+                "kernels' plain versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _entry_bytes(entry) -> int:
+    """Device bytes of one resident-cache entry (a tensor, or a sharded
+    backend's list of (offset, block) pairs)."""
+    if isinstance(entry, list):
+        return sum(_entry_bytes(block) for _, block in entry)
+    return int(entry.numel() * entry.element_size())
+
+
 class _DeviceMatrixMixin:
     """Per-array device-resident corpus cache (bounded, LRU).
 
@@ -198,6 +238,9 @@ class _DeviceMatrixMixin:
     dev_hits = 0       # calls served from the resident cache
     dev_evictions = 0  # LRU evictions
 
+    def _upload(self, matrix: np.ndarray):
+        return _corpus_tensor(matrix, self.device)
+
     def _device_matrix(self, matrix: np.ndarray):
         cache: "OrderedDict[int, Tuple[np.ndarray, object]]"
         cache = self.__dict__.setdefault("_dev_cache", OrderedDict())
@@ -208,7 +251,7 @@ class _DeviceMatrixMixin:
             cache.move_to_end(key)
             self.dev_hits += 1
             return entry[1]
-        dev = _to_device(np.asarray(matrix, np.float32), self.device)
+        dev = self._upload(matrix)
         cache[key] = (matrix, dev)
         cache.move_to_end(key)
         self.uploads += 1
@@ -217,12 +260,22 @@ class _DeviceMatrixMixin:
             self.dev_evictions += 1
         return dev
 
+    def drop_device_matrix(self, matrix: np.ndarray) -> None:
+        """Release ``matrix``'s resident copy now (a caller that replaced
+        the array for good), instead of at its LRU eviction."""
+        cache = self.__dict__.get("_dev_cache", {})
+        entry = cache.get(id(matrix))
+        if entry is not None and entry[0] is matrix:
+            del cache[id(matrix)]
+
     def device_cache_stats(self) -> Dict[str, int]:
+        cache = self.__dict__.get("_dev_cache", {})
         return {
-            "entries": len(self.__dict__.get("_dev_cache", ())),
+            "entries": len(cache),
             "uploads": self.uploads,
             "hits": self.dev_hits,
             "evictions": self.dev_evictions,
+            "bytes": sum(_entry_bytes(dev) for _, dev in cache.values()),
         }
 
 
@@ -544,19 +597,7 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
     name = "hopper"
 
     def __init__(self, device: str = "cuda") -> None:
-        import torch
-
-        dev = torch.device(device)
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"HopperBackend: no kernels for device {dev}")
-        if dev.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "HopperBackend: no CUDA device; pass device='cpu' to "
-                    "run the kernels' plain versions")
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
+        self.device = _kernel_device(device, "HopperBackend")
 
     def _panel(self, matrix, days_ago, plans):
         """Device-resident (B, N) score panel, rows in plan order, from
@@ -621,6 +662,20 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
             panel = torch.where(m.T if m.ndim == 2 else m[None, :], panel,
                                 float("-inf"))
         v, i = topk(panel, w_stat)
+        mat = self._device_matrix(matrix)
+        return self._finish_select(
+            plans, ks, widths, mask, n, i, v, fused_mmr,
+            lambda pool_i, rows: mat.index_select(0, pool_i.reshape(-1)))
+
+    def _finish_select(self, plans, ks, widths, mask, n, i, v, fused_mmr,
+                       pool_rows):
+        """The chain's tail over the selected (B, w) candidates ``i``,
+        ``v`` on the device: slice each plan's top-``widths[j]``, or run
+        the fused diverse tail.  ``pool_rows(pool_i, rows)`` returns the
+        embeddings of the (D, width) pool rows ``pool_i`` of the panel
+        rows ``rows``, flattened to (D * width, d)."""
+        import torch
+
         if not self._use_mmr(plans, fused_mmr):
             return _slice_candidates(i.cpu().numpy(), v.cpu().numpy(),
                                      widths)
@@ -642,8 +697,7 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
             live = (torch.arange(width, device=self.device)[None, :]
                     < _to_device(pool_w[div].astype(np.int64),
                                  self.device)[:, None])
-            emb = self._device_matrix(matrix).index_select(
-                0, pool_i.reshape(-1)).view(len(div), width, -1)
+            emb = pool_rows(pool_i, rows).float().view(len(div), width, -1)
             lams = _to_device(np.asarray(
                 [plans[j].diverse.lam for j in div], np.float32), self.device)
             sel, _ = mmr_select(emb, torch.where(live, pool_v, _MMR_NEG),
@@ -658,6 +712,184 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
         for row, j in enumerate(div):
             out[j] = (picks[0][row, :kf[j]].astype(np.int64),
                       picks[1][row, :kf[j]])
+        return out
+
+
+class ShardedBackend(HopperBackend):
+    """Row-sharded scoring over a list of devices: the port of the
+    reference's ``ShardedBackend`` (one shard per mesh device).
+
+    The corpus rows split into S contiguous blocks, block s on
+    ``devices[s]`` (uploaded once and kept resident, like every device
+    backend's segments).  :meth:`score_select` runs the Hopper chain on
+    every shard — ``pem_score`` into the shard's (B, n_local) panel, the
+    mask and hybrid bias sliced row-wise like the corpus, then ``topk``
+    for ``min(width, n_local)`` — copies each shard's candidates to the
+    lead device ``devices[0]`` (the in-process counterpart of the
+    collective) and merges them with
+    :func:`repro_torch.dist.pem_sharded.merge_shard_major`: another
+    ``topk`` over the shard-major union, exactly the monolith's result,
+    tie order included.  Diverse plans carry each shard's own pool rows
+    as the merge's payload, and ``mmr`` then runs once over the merged
+    pools on the lead device, as :class:`HopperBackend` runs it; the pool
+    never crosses to the host.
+
+    ``devices=None`` takes every visible card (and raises without one).
+    A list may repeat a device: ``["cuda:0"] * 4`` puts four shards on
+    one card, and ``["cpu"] * 4`` runs the kernels' plain versions.
+    """
+
+    name = "sharded"
+
+    def __init__(self, devices: Optional[Sequence[str]] = None) -> None:
+        import torch
+
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "ShardedBackend: no CUDA device; pass devices=['cpu'] "
+                    "* S to run the kernels' plain versions")
+            devices = [f"cuda:{j}" for j in range(torch.cuda.device_count())]
+        self.devices = [_kernel_device(d, "ShardedBackend") for d in devices]
+        if not self.devices:
+            raise ValueError("ShardedBackend: needs at least one device")
+        self.device = self.devices[0]  # the merge and the MMR tail run here
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.devices)
+
+    def _upload(self, matrix: np.ndarray):
+        """[(row offset, block on its device)] — S contiguous blocks of
+        ``ceil(n / S)`` rows (the last ones shorter, possibly empty)."""
+        n = matrix.shape[0]
+        n_local = -(-n // self.n_shards)
+        return [(min(s * n_local, n),
+                 _corpus_tensor(matrix[s * n_local:(s + 1) * n_local], dev))
+                for s, dev in enumerate(self.devices)]
+
+    def _shard_panels(self, matrix, days_ago, plans):
+        """Per shard: (offset, block, its (B, n_local) score panel), every
+        panel ``ceil(n / S)`` wide on its shard's device; columns past a
+        short block's rows hold -inf (they sort after every real row, and
+        a merge never needs them: the real candidates alone fill it)."""
+        import torch
+
+        from repro_torch.kernels.pem_score.ops import pem_score
+
+        q_pre, q_sup = M.fold_plans(plans)
+        q_pre = np.asarray(q_pre, np.float32)
+        q_sup = np.asarray(q_sup, np.float32)
+        decay = any(p.decay is not None for p in plans)
+        if decay:
+            days = np.asarray(days_ago, np.float32)
+            half_lives = np.asarray(
+                [p.decay.half_life_days if p.decay is not None else np.inf
+                 for p in plans], np.float32)
+        blocks = self._device_matrix(matrix)
+        n_local = -(-matrix.shape[0] // self.n_shards)
+        out = []
+        for (lo, block), dev in zip(blocks, self.devices):
+            rows = block.shape[0]
+            panel = torch.full((len(plans), n_local), float("-inf"),
+                               dtype=torch.float32, device=dev)
+            if rows:
+                ages = {}
+                if decay:
+                    ages = dict(days_ago=_to_device(days[lo:lo + rows], dev),
+                                half_lives=_to_device(half_lives, dev))
+                pem_score(block, _to_device(q_pre, dev),
+                          _to_device(q_sup, dev), out=panel[:, :rows].T,
+                          **ages)
+            out.append((lo, block, panel))
+        return out
+
+    def score_panel(self, matrix, days_ago, plans):
+        for p in plans:
+            _require_days(p, days_ago)
+        full = np.empty((matrix.shape[0], len(plans)), np.float32)
+        for lo, block, panel in self._shard_panels(matrix, days_ago, plans):
+            rows = block.shape[0]
+            full[lo:lo + rows] = panel[:, :rows].T.cpu().numpy()
+        return full
+
+    def score_select(self, matrix, days_ago, plans, ks, *, mask=None,
+                     fused_mmr=None, score_bias=None, cohort=False):
+        import torch
+
+        from repro_torch.dist.pem_sharded import merge_shard_major
+        from repro_torch.kernels.topk.ops import topk
+
+        for p in plans:
+            _require_days(p, days_ago)
+        n = matrix.shape[0]
+        if n == 0:
+            return [_empty_candidates() for _ in plans]
+        widths = [selection_width(p, k, n) for p, k in zip(plans, ks)]
+        w_stat = min(PlanStructure.of(plans, widths, n).width, n)
+        payload = self._use_mmr(plans, fused_mmr)
+        lead = self.device
+        cand_v, cand_i, cand_p = [], [], []
+        for lo, block, panel in self._shard_panels(matrix, days_ago, plans):
+            rows, dev = block.shape[0], panel.device
+            live = panel[:, :rows]
+            if score_bias is not None and rows:
+                # hybrid lexical leg, row-sliced like the corpus
+                b = _to_device(np.asarray(score_bias[lo:lo + rows],
+                                          np.float32), dev)
+                live.add_(b.T if b.ndim == 2 else b[None, :])
+            if mask is not None and rows:
+                # tombstones (or each plan's candidate column) drop out
+                # on the shard, before its top-k
+                m = _to_device(np.asarray(mask[lo:lo + rows], bool), dev)
+                live.masked_fill_(~(m.T if m.ndim == 2 else m[None, :]),
+                                  float("-inf"))
+            v, i = topk(panel, min(w_stat, panel.shape[1]))
+            i = i.long()
+            cand_v.append(v.to(lead))
+            cand_i.append((i + lo).to(lead))
+            if payload:
+                # each shard gathers its OWN pool rows (padding columns
+                # clamp to a real row: the merge never selects them)
+                pe = (block.index_select(0, i.clamp(max=rows - 1)
+                                         .reshape(-1)).float()
+                      if rows else torch.zeros(
+                          (i.numel(), matrix.shape[1]), device=dev))
+                cand_p.append(pe.view(*i.shape, -1).to(lead))
+        merged = merge_shard_major(
+            torch.stack(cand_v), torch.stack(cand_i), w_stat,
+            torch.stack(cand_p) if payload else None)
+        i, v = merged[0], merged[1]
+        return self._finish_select(
+            plans, ks, widths, mask, n, i, v, fused_mmr,
+            lambda pool_i, rows: merged[2].index_select(0, rows)
+            [:, :pool_i.shape[1]].reshape(-1, merged[2].shape[-1]))
+
+    def _gather_pool_device(self, segments, gidx: np.ndarray):
+        """(pool, d) f32 embeddings of merged global rows on the lead
+        device, each row gathered on the shard that holds it."""
+        import torch
+
+        from repro_torch.core.segments import segment_offsets
+
+        off = segment_offsets(segments)
+        seg_idx = np.searchsorted(off, gidx, side="right") - 1
+        local = gidx - off[seg_idx]
+        out = torch.empty((gidx.size, segments[0].matrix.shape[1]),
+                          dtype=torch.float32, device=self.device)
+        for s in np.unique(seg_idx):
+            seg = segments[s]
+            n_local = -(-seg.n_rows // self.n_shards)
+            for (lo, block), shard in zip(self._device_matrix(seg.matrix),
+                                          range(self.n_shards)):
+                pos = np.flatnonzero((seg_idx == s)
+                                     & (local // n_local == shard))
+                if pos.size == 0:
+                    continue
+                rows = block.index_select(
+                    0, _to_device(local[pos] - lo, block.device)).float()
+                out.index_copy_(0, _to_device(pos, self.device),
+                                rows.to(self.device))
         return out
 
 

@@ -77,6 +77,7 @@ constexpr int kThreads = 128 * kConsumers;
 constexpr int kBoxBytes = kRows * 128;  // one 128-byte-wide swizzled box
 constexpr int kMaxStages = 8;
 constexpr int kSmemLimit = 232448;
+constexpr int kMaxDevices = 64;  // devices whose launch attribute is cached
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -764,13 +765,17 @@ int sm_count() {
 template <typename T, int NW>
 cudaError_t launch(const CUtensorMap& map, const CUtensorMap& rows_map,
                    const Params& p, const Plan& pl, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // the attribute belongs to the current device: set it once on each
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !attr_set[dev]) {
+    err = cudaFuncSetAttribute(
         pem_score_kernel<T, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemLimit);
     if (err != cudaSuccess) return err;
-    attr_set = true;
+    if (dev < kMaxDevices) attr_set[dev] = true;
   }
   pem_score_kernel<T, NW>
       <<<pl.grid, kThreads, pl.smem, stream>>>(map, rows_map, p);

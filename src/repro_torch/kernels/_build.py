@@ -5,13 +5,15 @@ The first call on a machine with a card compiles every source under
 source, all started together, then one link) into
 ``build/repro_torch/libflexvec_<hash>.so`` at the repository root, keyed
 on a hash of the sources and flags, and loads it with ``ctypes``.  Later
-calls reuse the loaded library; a later process reuses the file.  Nothing
+calls reuse the loaded library; a later process reuses the file, and
+processes that start together build it once (a file lock).  Nothing
 here runs at import: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import json
 import os
@@ -104,9 +106,13 @@ def load() -> ctypes.CDLL:
         report = target.with_suffix(".ptxas.json")
         t0 = time.perf_counter()
         seconds = 0.0
-        if not target.exists():
-            report.write_text(json.dumps(_compile(target)))
-            seconds = time.perf_counter() - t0
+        # one process builds, the others (shard workers started together)
+        # wait for it; the OS drops the lock if its holder dies
+        with open(BUILD_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not target.exists():
+                report.write_text(json.dumps(_compile(target)))
+                seconds = time.perf_counter() - t0
         build_info.update(seconds=seconds, path=str(target),
                           ptxas=json.loads(report.read_text())
                           if report.exists() else {})

@@ -41,9 +41,11 @@ def launch(embeds: torch.Tensor, rel: torch.Tensor, lam: torch.Tensor,
     """Enqueue one selection launch on the current stream.  Arguments are
     validated by :func:`repro_torch.kernels.mmr.ops.mmr_select`."""
     b, n, d = embeds.shape
-    err = _lib().flexvec_mmr(embeds.data_ptr(), rel.data_ptr(), lam.data_ptr(),
-                             b, n, d, k, idx.data_ptr(), val.data_ptr(),
-                             _build.stream_ptr(embeds.device))
+    with torch.cuda.device(embeds.device):  # the launch's current device
+        err = _lib().flexvec_mmr(embeds.data_ptr(), rel.data_ptr(),
+                                 lam.data_ptr(), b, n, d, k, idx.data_ptr(),
+                                 val.data_ptr(),
+                                 _build.stream_ptr(embeds.device))
     if err == NO_CLUSTER:
         raise RuntimeError(f"mmr: cudaOccupancyMaxActiveClusters is 0 for a "
                            f"cluster over a ({n}, {d}) pool")

@@ -12,6 +12,7 @@ the kernel takes any n, so nothing is padded to the TPU's 128 multiples.
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple, Union
 
 import torch
@@ -23,6 +24,7 @@ from repro_torch.kernels.mmr.ref import NEG, mmr_ref
 __all__ = ["NEG", "mmr_select"]
 
 MAX_POOL = 25000  # a CTA keeps 13 bytes of state for each of n / 8 slots
+_count_lock = threading.Lock()
 
 
 def mmr_select(
@@ -62,7 +64,8 @@ def mmr_select(
         embeds = F.pad(embeds, (0, 4 - d % 4))
     kernel.launch(embeds.contiguous(), rel.contiguous(),
                   lam_t.contiguous(), k, idx, val)
-    mmr_select.launches += 1
+    with _count_lock:  # shard workers launch from several threads
+        mmr_select.launches += 1
     return idx, val
 
 

@@ -35,11 +35,12 @@ def launch(matrix: torch.Tensor, q_pre: torch.Tensor, q_sup: torch.Tensor,
     """Enqueue one scoring launch on the current stream.  Arguments are
     validated by :func:`repro_torch.kernels.pem_score.ops.pem_score`."""
     n, d = matrix.shape
-    err = _fn()(matrix.data_ptr(), int(matrix.dtype == torch.bfloat16),
-                q_pre.data_ptr(), q_sup.data_ptr(), _ptr(decay),
-                _ptr(days_ago), _ptr(half_lives), out.data_ptr(),
-                n, d, q_pre.shape[1], out.stride(0), out.stride(1),
-                _build.stream_ptr(matrix.device))
+    with torch.cuda.device(matrix.device):  # the launch's current device
+        err = _fn()(matrix.data_ptr(), int(matrix.dtype == torch.bfloat16),
+                    q_pre.data_ptr(), q_sup.data_ptr(), _ptr(decay),
+                    _ptr(days_ago), _ptr(half_lives), out.data_ptr(),
+                    n, d, q_pre.shape[1], out.stride(0), out.stride(1),
+                    _build.stream_ptr(matrix.device))
     _build.check(err, "pem_score")
 
 

@@ -15,12 +15,16 @@ in one launch.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.pem_score import kernel
 from repro_torch.kernels.pem_score.ref import pem_score_days_ref, pem_score_ref
+
+
+_count_lock = threading.Lock()
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -91,7 +95,8 @@ def pem_score(
         out = torch.empty((n, b), dtype=torch.float32, device=matrix.device)
     if n and b:
         kernel.launch(matrix, q_pre, q_sup, decay, days_ago, half_lives, out)
-        pem_score.launches += 1
+        with _count_lock:  # shard workers launch from several threads
+            pem_score.launches += 1
     return out
 
 

@@ -43,8 +43,9 @@ def launch(scores: torch.Tensor, k: int, chunk: int, chunks: int,
     C entry point for the contract).  Arguments are validated and sized by
     :func:`repro_torch.kernels.topk.ops.topk`."""
     rows, n = scores.shape
-    err = _lib().flexvec_topk(scores.data_ptr(), scores.stride(0),
-                              scores.stride(1), n, rows, k, chunk, chunks,
-                              sort_n, workspace.data_ptr(), vals.data_ptr(),
-                              idx.data_ptr(), _build.stream_ptr(scores.device))
+    with torch.cuda.device(scores.device):  # the launch's current device
+        err = _lib().flexvec_topk(
+            scores.data_ptr(), scores.stride(0), scores.stride(1), n, rows,
+            k, chunk, chunks, sort_n, workspace.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), _build.stream_ptr(scores.device))
     _build.check(err, "topk")

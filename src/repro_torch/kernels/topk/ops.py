@@ -10,6 +10,7 @@ sort of them, all enqueued by one call with no host synchronisation.
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import torch
@@ -21,6 +22,7 @@ MAX_K = 8192       # the sort keeps k 64-bit keys in shared memory (64 KB)
 MAX_ROWS = 65535   # the grid's y extent
 CHUNKS = (1024, 2048, 4096, 8192, 16384)  # columns a block takes
 MIN_BLOCKS = 264   # two blocks an SM on the H100's 132
+_count_lock = threading.Lock()
 
 
 def _pow2(x: int) -> int:
@@ -66,7 +68,8 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     ws = torch.empty(-(-kernel.workspace_bytes(b, chunks, k) // 8),
                      dtype=torch.int64, device=dev)
     kernel.launch(scores, k, chunk, chunks, _pow2(k), ws, vals, idx)
-    topk.launches += kernel.LAUNCHES
+    with _count_lock:  # shard workers launch from several threads
+        topk.launches += kernel.LAUNCHES
     return vals, idx
 
 

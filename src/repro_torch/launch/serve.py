@@ -1,14 +1,17 @@
 """Serving launcher: FLEXVEC retrieval service on the Hopper kernels.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --chunks 50000 \
-        --queries 64 [--sql "SELECT ..."] [--device cpu]
+        --queries 64 [--sql "SELECT ..."] [--device cpu] \
+        [--shards 4 [--transport thread|process|inline] [--dtype f32|f32b|bf16]]
 
 Builds a production-like corpus, starts the micro-batching engine + the
 agent-facing SQL endpoint, serves a concurrent workload, prints latency
 stats.  Both the SQL endpoint and the batched engine score through one
 :class:`HopperBackend`: the pem_score -> topk -> mmr kernels on the card
 (``--device cuda``, the default), or their plain versions on the CPU
-(``--device cpu``).
+(``--device cpu``).  ``--shards N`` serves through
+``RetrievalService.shard_group``: N shard workers on the same device,
+each scoring its round-robin share of the corpus, merged exactly.
 """
 
 from __future__ import annotations
@@ -37,6 +40,12 @@ def main() -> None:
                          "versions on the CPU")
     ap.add_argument("--sql", default=None,
                     help="run one SQL statement through flex_search and exit")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="serve through a shard group of this many workers")
+    ap.add_argument("--transport", choices=("thread", "process", "inline"),
+                    default="thread", help="the shard group's transport")
+    ap.add_argument("--dtype", choices=("f32", "f32b", "bf16"),
+                    default="f32", help="the shard workers' scoring mode")
     ap.add_argument("--sync-core", action="store_true",
                     help="serialize the host tail behind the device pass "
                          "(the pre-async engine behavior, for comparison)")
@@ -51,9 +60,16 @@ def main() -> None:
     build_database(conn, chunks, emb)
     svc = RetrievalService(conn, dim=128, embedder=emb, now=NOW,
                            engine=backend)
+    group = (svc.shard_group(args.shards, transport=args.transport,
+                             dtype=args.dtype) if args.shards else None)
 
     if args.sql:
-        res = svc.flex_search(args.sql)
+        if group is not None:
+            svc.serving()  # vec_ops reach the group through the engine
+        try:
+            res = svc.flex_search(args.sql)
+        finally:
+            svc.close()
         if not res.ok:
             raise SystemExit(f"error: {res.error}")
         print(",".join(res.columns))
@@ -63,7 +79,7 @@ def main() -> None:
         return
 
     engine = BatchedRetrievalEngine(svc.cache, max_batch=32, now=NOW,
-                                    engine=backend,
+                                    engine=backend, shard_group=group,
                                     pipeline=not args.sync_core)
     topics = ["server lifecycle", "identity provenance", "rendering pipeline",
               "auth token", "database migration"]
@@ -80,8 +96,10 @@ def main() -> None:
     print(f"served {args.queries} queries in {wall*1e3:.0f} ms "
           f"({args.queries/wall:.0f} q/s) on {backend.device} across "
           f"{stats['batches_served']} fused batches [{core}; "
-          f"{stats['overlapped_batches']} overlapped]")
+          f"{stats['overlapped_batches']} overlapped]"
+          + (f" via {args.shards} {args.transport} shards" if group else ""))
     engine.close()
+    svc.close()
 
 
 if __name__ == "__main__":

@@ -252,13 +252,52 @@ class RetrievalService:
         if self._shard_group is not None:
             self._shard_group.append(ids, vecs, stamps)
 
-    def shard_group(self, *args: Any, **kwargs: Any) -> "Any":
-        """Cross-process shard groups need ``dist.procgroup``, which this
-        package does not have yet: the GPU shard workers are a later slice
-        of the port.  Raises until then."""
-        raise NotImplementedError(
-            "RetrievalService.shard_group needs repro_torch.dist.procgroup "
-            "(GPU shard workers), a later slice of the port")
+    def shard_group(
+        self,
+        n_shards: int = 4,
+        *,
+        transport: str = "thread",
+        dtype: str = "f32",
+        replicas: int = 1,
+        block: Optional[int] = None,
+        device: Optional[str] = None,
+    ) -> "Any":
+        """Attach a cross-process shard group mirroring this service's
+        corpus (:class:`repro_torch.dist.procgroup.ProcessGroup`): the
+        corpus is dealt round-robin across ``n_shards`` per-shard segmented
+        stores and every subsequent :meth:`search` — direct, or batched
+        once :meth:`serving` is attached afterwards — fans out to one
+        replica per shard and merges with the exact-union contract.
+        Ingest and delete keep the group in sync with the cache.
+        ``dtype`` picks the per-shard scoring mode: ``"f32"`` (exact),
+        ``"f32b"`` (one pass over the live rows — the million-chunk
+        latency mode) or ``"bf16"`` (packed codes, half the resident
+        scoring bytes).
+
+        The workers score with the Hopper kernels on ``device``: by
+        default where this service's engine runs (its ``device``), else
+        on the card, shard s on ``cuda:{s % device_count}``;
+        ``device="cpu"`` runs the kernels' plain versions.  Arguments
+        apply on first creation only.
+        """
+        with self._serving_lock:
+            if self._shard_group is None:
+                from repro_torch.dist.procgroup import ProcessGroup
+
+                if device is None:
+                    device = str(getattr(self.engine, "device", "cuda"))
+                    # a card with an index deals no shards round-robin
+                    device = "cuda" if device.startswith("cuda") else device
+                with self.cache.store.lock:
+                    self._shard_group = ProcessGroup.build(
+                        self.cache.ids, self.cache.matrix,
+                        self.cache.timestamps, normalized=True,
+                        n_shards=n_shards, transport=transport,
+                        dtype=dtype, replicas=replicas, block=block,
+                        engine="hopper", device=device)
+                if self._serving is not None:
+                    self._serving.shard_group = self._shard_group
+            return self._shard_group
 
     async def search_async(
         self,

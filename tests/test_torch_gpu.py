@@ -403,3 +403,301 @@ def test_hopper_backend_scores_mixed_half_lives_in_one_launch(cuda):
     want = HopperBackend("cpu").score_select(mat, days, plans, ks)
     for (gi, gv), (wi, wv) in zip(got, want):
         _assert_same_ranking(gi, gv, wi, wv)
+
+
+# -- sharded scoring and shard workers on the card ---------------------------
+
+SHARD_TOKENS = (
+    "similar:server lifecycle decay:7",
+    "similar:auth token suppress:website design",
+    "similar:rendering pipeline decay:30 diverse pool:100",
+    "similar:identity provenance from:sketch to:production diverse",
+)
+
+
+def _sharded_corpus(n, d, seed, tie_rows=()):
+    """Unit rows and ages; every row in ``tie_rows`` is the same one-hot
+    vector with the same age, so its scores tie exactly in any order of
+    summation."""
+    rng = np.random.default_rng(seed)
+    mat = rng.standard_normal((n, d)).astype(np.float32)
+    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
+    days = rng.uniform(0, 120, n).astype(np.float32)
+    for r in tie_rows:
+        mat[r] = 0.0
+        mat[r, 3] = 1.0
+        days[r] = 5.0
+    return mat, days
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_sharded_backend_equals_hopper_on_the_card(cuda, masked):
+    """Four shards on one card against the monolithic backend on the same
+    rows: ids equal and scores bit-equal (the scoring kernel reduces each
+    row in one order, whatever block holds it), diverse plans included."""
+    from repro_torch.core.backends import HopperBackend, ShardedBackend
+    from repro_torch.core.grammar import parse
+    from repro_torch.embed import HashEmbedder
+
+    n, d = 50_001, 128
+    mat, days = _sharded_corpus(n, d, 11)
+    emb = HashEmbedder(d)
+    plans = [parse(t, emb) for t in SHARD_TOKENS]
+    ks = [20, 10, 30, 25]
+    rng = np.random.default_rng(12)
+    mask = rng.random(n) > 0.1 if masked else None
+    if masked:
+        mask[: -(-n // 4)] = False  # the first shard holds no live row
+    got = ShardedBackend([cuda.type + ":0"] * 4).score_select(
+        mat, days, plans, ks, mask=mask)
+    want = HopperBackend("cuda").score_select(mat, days, plans, ks,
+                                              mask=mask)
+    for (gi, gv), (wi, wv) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gv, wv)
+
+
+def test_sharded_backend_boundary_ties_on_the_card(cuda):
+    """Equal scores that straddle every shard boundary go to the smallest
+    global row, as on the monolith and in the plain chain."""
+    from repro_torch.core.backends import HopperBackend, ShardedBackend
+    from repro_torch.core.grammar import parse
+    from repro_torch.embed import HashEmbedder
+
+    n, d, s = 40_000, 128, 4
+    step = -(-n // s)
+    ties = [r for b in range(1, s) for r in (b * step - 2, b * step - 1,
+                                             b * step, b * step + 1)]
+    mat, days = _sharded_corpus(n, d, 13, ties)
+    q = np.zeros(d, np.float32)
+    q[3] = 1.0  # the tie rows score highest
+    emb = HashEmbedder(d)
+    plan = dataclasses.replace(parse("similar:server lifecycle", emb),
+                               query=q)
+    got = ShardedBackend(["cuda:0"] * s).score_select(mat, days, [plan],
+                                                      [30])
+    want = HopperBackend("cuda").score_select(mat, days, [plan], [30])
+    plain = ShardedBackend(["cpu"] * s).score_select(mat, days, [plan],
+                                                     [30])
+    np.testing.assert_array_equal(got[0][0], want[0][0])
+    np.testing.assert_array_equal(got[0][0], plain[0][0])
+    tied = [int(r) for r in got[0][0] if int(r) in set(ties)]
+    assert tied == sorted(tied)
+
+
+def test_spawned_shard_group_on_the_card(cuda):
+    """Two spawned workers, each scoring its shard with the kernels on the
+    card, against the fused-numpy monolith on the same rows."""
+    from repro_torch.core.grammar import parse
+    from repro_torch.core.vectorcache import VectorCache
+    from repro_torch.dist.procgroup import ProcessGroup
+    from repro_torch.embed import HashEmbedder
+
+    n, d, now = 20_000, 128, 1_770_000_000.0
+    mat, days = _sharded_corpus(n, d, 14)
+    ids = np.arange(n, dtype=np.int64)
+    ts = now - days.astype(np.float64) * 86400.0
+    emb = HashEmbedder(d)
+    vc = VectorCache(ids, mat, ts, emb)
+    with ProcessGroup.build(ids, mat, ts, normalized=True, n_shards=2,
+                            transport="process", engine="hopper",
+                            device="cuda") as g:
+        assert {s["device"] for s in g.stats()["shards"]} <= {
+            f"cuda:{j}" for j in range(torch.cuda.device_count())}
+        for tokens in SHARD_TOKENS:
+            plan = parse(tokens, emb)
+            got = g.search_plan(plan, now=now)
+            want = vc.search_plan(plan, now=now, engine="fused-numpy")
+            if plan.diverse is None:
+                _assert_same_ranking(
+                    np.array([i for i, _ in got]),
+                    np.array([v for _, v in got], np.float32),
+                    np.array([i for i, _ in want]),
+                    np.array([v for _, v in want], np.float32))
+            else:
+                _assert_same_mmr_ranking(got, want)
+        assert all(s["device_bytes"] > 0 for s in g.stats()["shards"])
+
+
+def _assert_same_mmr_ranking(got, want, tol=1e-5):
+    """An MMR-ordered (id, relevance) list: the same ids, each with its
+    relevance within ``tol``, in the same order except swaps of two
+    neighbours.  Relevance a few ulps off (the card's products against
+    BLAS's) can turn a near tie of two greedy MMR values either way; the
+    two picks then trade places, as ``chip_smoke.py`` allows."""
+    gi, wi = [i for i, _ in got], [i for i, _ in want]
+    assert sorted(gi) == sorted(wi)
+    score = dict(want)
+    assert max(abs(v - score[i]) for i, v in got) <= tol
+    p = 0
+    while p < len(gi):
+        if gi[p] != wi[p]:
+            assert gi[p:p + 2] == wi[p:p + 2][::-1], (p, gi[p:p + 3],
+                                                      wi[p:p + 3])
+            p += 1
+        p += 1
+
+
+def test_bf16_worker_views_the_codes_on_the_card(cuda):
+    """A bf16 shard's resident corpus is the truncated pack_bf16 codes
+    viewed as bfloat16, not the f32 rows rounded to nearest."""
+    from repro_torch.core.grammar import parse
+    from repro_torch.core.segments import pack_bf16
+    from repro_torch.dist.procgroup import ShardWorker
+    from repro_torch.embed import HashEmbedder
+
+    n, d, now = 4096, 128, 1_770_000_000.0
+    mat, days = _sharded_corpus(n, d, 15)
+    w = ShardWorker(0, d, engine="hopper", device="cuda", dtype="bf16")
+    w.append(np.arange(n), mat, now - days * 86400.0, normalized=True)
+    w.local_pass([parse("similar:auth token decay:30", HashEmbedder(d))],
+                 [10], now)
+    codes, _, _ = w._packed_view(w.store.segments)
+    dev = w.backend._device_matrix(codes)
+    assert dev.dtype == torch.bfloat16 and dev.device.type == "cuda"
+    np.testing.assert_array_equal(
+        dev.view(torch.int16).cpu().numpy().view(np.uint16), pack_bf16(mat))
+    rounded = torch.from_numpy(mat).to(torch.bfloat16)
+    assert not torch.equal(rounded.view(torch.int16).cuda(),
+                           dev.view(torch.int16))
+
+
+# -- four cards: one shard a card (skip on fewer) -----------------------------
+
+
+@pytest.fixture
+def four_cards(cuda):
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards; run with -m gpu on a four-card host")
+    return [f"cuda:{j}" for j in range(4)]
+
+
+_NCCL_RANKS = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def run(rank, world, store, data, out):
+    from repro_torch.dist.pem_sharded import make_pem_topk
+    torch.cuda.set_device(rank)
+    d = np.load(data)
+    n_local = d["corpus"].shape[0] // world
+    rows = slice(rank * n_local, (rank + 1) * n_local)
+    dist.init_process_group("nccl", init_method="file://" + store,
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", rank)
+        i, v = make_pem_topk(int(d["k"]), half_life=30.0)(
+            torch.from_numpy(d["corpus"][rows]).to(dev),
+            torch.from_numpy(d["days"][rows]).to(dev),
+            torch.from_numpy(d["qp"]).to(dev),
+            torch.from_numpy(d["qs"]).to(dev))
+        np.savez(f"{out}.{rank}.npz", i=i.cpu().numpy(), v=v.cpu().numpy())
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    world = int(sys.argv[1])
+    mp.spawn(run, args=(world, *sys.argv[2:5]), nprocs=world, join=True)
+"""
+
+
+def test_make_pem_topk_on_four_nccl_ranks(four_cards, tmp_path):
+    """Four NCCL ranks, a card each, a quarter of the rows each: every
+    rank returns the one-rank result on one card bit for bit."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.dist.pem_sharded import make_pem_topk
+
+    rng = np.random.default_rng(16)
+    n, d, b, k = 400_000, 128, 8, 500
+    corpus = rng.standard_normal((n, d)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    days = rng.uniform(0, 120, n).astype(np.float32)
+    qp = (rng.standard_normal((d, b)) / d ** 0.5).astype(np.float32)
+    qs = (rng.standard_normal((d, b)) * 0.1).astype(np.float32)
+    data = tmp_path / "inputs.npz"
+    np.savez(data, corpus=corpus, days=days, qp=qp, qs=qs, k=k)
+    script = tmp_path / "ranks.py"
+    script.write_text(_NCCL_RANKS)
+    src = Path(__file__).resolve().parents[1] / "src"
+    r = subprocess.run(
+        [sys.executable, str(script), "4", str(tmp_path / "store"),
+         str(data), str(tmp_path / "out")],
+        env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True,
+        text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    dev = torch.device("cuda", 0)
+    wi, wv = make_pem_topk(k, half_life=30.0)(
+        *(torch.from_numpy(a).to(dev) for a in (corpus, days, qp, qs)))
+    for rank in range(4):
+        got = np.load(f"{tmp_path / 'out'}.{rank}.npz")
+        np.testing.assert_array_equal(got["i"], wi.cpu().numpy())
+        np.testing.assert_array_equal(got["v"], wv.cpu().numpy())
+
+
+def test_sharded_backend_one_shard_a_card(four_cards):
+    """Four shards on four cards against the monolith on one: ids equal,
+    scores bit-equal, diverse plans finished on the lead card."""
+    from repro_torch.core.backends import HopperBackend, ShardedBackend
+    from repro_torch.core.grammar import parse
+    from repro_torch.embed import HashEmbedder
+
+    n, d = 120_001, 128
+    mat, days = _sharded_corpus(n, d, 17)
+    emb = HashEmbedder(d)
+    plans = [parse(t, emb) for t in SHARD_TOKENS]
+    ks = [20, 10, 30, 25]
+    mask = np.random.default_rng(18).random(n) > 0.1
+    backend = ShardedBackend(four_cards)
+    got = backend.score_select(mat, days, plans, ks, mask=mask)
+    want = HopperBackend("cuda:0").score_select(mat, days, plans, ks,
+                                                mask=mask)
+    for (gi, gv), (wi, wv) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gv, wv)
+    blocks = backend._device_matrix(mat)
+    assert [str(block.device) for _, block in blocks] == four_cards
+
+
+def test_shard_group_one_worker_a_card(four_cards):
+    """A process group with one spawned worker a card (the default
+    dealing), against the same group's thread workers and the
+    fused-numpy monolith."""
+    from repro_torch.core.grammar import parse
+    from repro_torch.core.vectorcache import VectorCache
+    from repro_torch.dist.procgroup import ProcessGroup
+    from repro_torch.embed import HashEmbedder
+
+    n, d, now = 40_000, 128, 1_770_000_000.0
+    mat, days = _sharded_corpus(n, d, 19)
+    ids = np.arange(n, dtype=np.int64)
+    ts = now - days.astype(np.float64) * 86400.0
+    emb = HashEmbedder(d)
+    vc = VectorCache(ids, mat, ts, emb)
+    with ProcessGroup.build(ids, mat, ts, normalized=True, n_shards=4,
+                            transport="process") as g, \
+            ProcessGroup.build(ids, mat, ts, normalized=True, n_shards=4,
+                               transport="thread") as t:
+        assert g.devices == t.devices == four_cards
+        assert [s["device"] for s in g.stats()["shards"]] == four_cards
+        for tokens in SHARD_TOKENS:
+            plan = parse(tokens, emb)
+            got = g.search_plan(plan, now=now)
+            assert got == t.search_plan(plan, now=now)
+            want = vc.search_plan(plan, now=now, engine="fused-numpy")
+            if plan.diverse is None:
+                _assert_same_ranking(
+                    np.array([i for i, _ in got]),
+                    np.array([v for _, v in got], np.float32),
+                    np.array([i for i, _ in want]),
+                    np.array([v for _, v in want], np.float32))
+            else:
+                _assert_same_mmr_ranking(got, want)

@@ -6,6 +6,7 @@
   card) imports JAX or the reference package.
 * The entry points default to the card and raise where there is none,
   instead of running on the CPU.
+* A spawned shard worker, which imports the port afresh, loads neither.
 """
 
 import os
@@ -36,7 +37,9 @@ def _port_modules():
 
 def test_port_modules_load_no_jax_and_no_reference():
     mods = _port_modules()
-    assert "repro_torch.core.backends" in mods
+    assert {"repro_torch.core.backends", "repro_torch.dist",
+            "repro_torch.dist.pem_sharded",
+            "repro_torch.dist.procgroup"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -70,8 +73,9 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the defaults run there")
     import sqlite3
 
-    from repro_torch.core.backends import HopperBackend
+    from repro_torch.core.backends import HopperBackend, ShardedBackend
     from repro_torch.core.vectorcache import VectorCache
+    from repro_torch.dist.procgroup import ProcessGroup
     from repro_torch.serve.engine import BatchedRetrievalEngine
     from repro_torch.serve.retrieval import RetrievalService
     from repro_torch.sqlio.schema import build_schema
@@ -86,6 +90,15 @@ def test_entry_points_default_to_the_card():
         RetrievalService(conn, dim=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedRetrievalEngine(VectorCache([1], np.ones((1, 8), np.float32)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedBackend()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedBackend(["cuda:0", "cuda:0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProcessGroup(8, 2)
+    svc = RetrievalService(conn, dim=8, engine="fused-numpy")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        svc.shard_group(2)
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--chunks", "50"],
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
@@ -107,3 +120,35 @@ def test_wrappers_raise_on_a_device_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         mmr_select(torch.empty(1, 10, 8, device=meta),
                    torch.empty(1, 10, device=meta), 3)
+
+
+def test_spawned_workers_import_no_jax_and_no_reference(tmp_path):
+    """A spawned Hopper worker imports the port afresh; with ``jax`` and
+    ``repro`` shadowed by modules that raise on import, a process group
+    still builds and serves."""
+    for name in ("jax", "repro"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} imported by the port')\n")
+    code = (
+        "import numpy as np\n"
+        "from repro_torch.core.grammar import parse\n"
+        "from repro_torch.dist.procgroup import ProcessGroup\n"
+        "from repro_torch.embed import HashEmbedder\n"
+        "if __name__ == '__main__':\n"
+        "    e = HashEmbedder(16)\n"
+        "    m = e.embed_batch([f'row {i}' for i in range(64)])\n"
+        "    with ProcessGroup.build(np.arange(64), m, n_shards=2,\n"
+        "                            transport='process', engine='hopper',\n"
+        "                            device='cpu') as g:\n"
+        "        out = g.search_plan(parse('similar:row 3 pool:5', e))\n"
+        "    print(len(out))\n"
+    )
+    script = tmp_path / "spawn_check.py"
+    script.write_text(code)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp_path), str(ROOT / "src")]))
+    r = subprocess.run([sys.executable, str(script)], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "5"

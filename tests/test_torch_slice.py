@@ -123,5 +123,17 @@ def test_sql_errors_come_back_explicit(services):
 
 
 def test_shard_group_waits_for_its_slice(services):
-    with pytest.raises(NotImplementedError, match="procgroup"):
-        services["t"].shard_group(4)
+    """The shard-group slice has landed: a second service over the same
+    database attaches four shard workers where its engine runs (the
+    kernels' plain versions here) and serves the requests and the
+    composed query through them, ranked like the direct path."""
+    svc = TService(services["t"].conn, dim=128, embedder=THash(128),
+                   now=NOW, engine=HopperBackend("cpu"))
+    try:
+        group = svc.shard_group(4)
+        assert group.devices == ["cpu"] * 4 and group.n_live == N
+        for tokens in REQUESTS + [TOKENS]:
+            _same_ranking(svc.search(tokens, 20),
+                          services["t"].search(tokens, 20))
+    finally:
+        svc.close()
