@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) end to end on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed S]
 
 Needs one NVIDIA card (sm_90a, an H100) and the CUDA toolkit; exits non-zero
 with no result line anywhere else.  Imports nothing of JAX or of the
@@ -44,9 +44,16 @@ reference package.  Prints one JSON object per line, in order:
 8. ``shard_group_1m``: ``ProcessGroup`` over the same rows, four shards:
    spawned workers in f32, then thread workers in f32, f32b and bf16
    (f32 against the oracle, f32b and bf16 by their top-100 overlap);
-9. the ``kernels`` line (launch counts from the main path's run, and each
-   path's own run beside them);
-10. ``{"ok": true, "device": {...}}``, the last line.
+9. ``flexvec_arch``: the flexvec architecture entry
+   (``configs.get_arch("flexvec")``, built on ``make_local_mesh()``) at
+   its corpus_240k and corpus_1m cells, B = 64, MMR 500 of 1500, f32 and
+   bf16, one-stage and two-stage (a one-rank NCCL group): each kernel
+   against its plain version on the step's inputs, the step against the
+   plain step, two-stage bit-equal to one-stage; step and kernel times,
+   bounds from the shared count, launches, K3's waves, peak memory;
+10. the ``kernels`` line (launch counts from the main path's run, and
+    each path's own run beside them);
+11. ``{"ok": true, "device": {...}}``, the last line.
 
 Any failure raises.  Rankings must equal the oracle's id for id, scores
 agree to 1e-5; a candidate pool must equal the oracle's as a set except
@@ -56,6 +63,7 @@ for members within 1e-5 of the boundary score, which are printed.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import gc
 import json
 import re
 import sqlite3
@@ -70,9 +78,6 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 NOW = 1_770_000_000.0
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
-F32_FLOPS_PER_S = 67e12      # f32 outside the tensor cores, same source
-TF32_FLOPS_PER_S = 495e12    # dense TF32 on the tensor cores, same source
 TOL = 1e-5
 TOKENS = (
     "similar:how the system works architecture "
@@ -104,12 +109,15 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
-    """Least time for the work: bytes over HBM rate vs f32 operations over
-    the f32 peak, whichever is larger, and which one it is."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(work):
+    """A kernel's least time on the card: its bytes over the HBM rate or
+    its operations over their peak, whichever is larger, and which one it
+    is.  ``work`` comes from the one count of each kernel's work
+    (``repro_torch/configs/flexvec.py``) and the H100's published figures
+    (``repro_torch/roofline/analysis.py``), which the dry run reads too."""
+    from repro_torch.roofline.analysis import HW
+
+    return HW.bound_s(work) * 1e3, HW.bound_by(work)
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -258,19 +266,21 @@ def phase_build() -> None:
 
 
 def pem_bound(n: int, d: int, b: int, esize: int) -> dict:
-    """K1's least time: the bytes (corpus, queries, the (N,) decay or ages,
-    the (N, B) panel) over the HBM rate, against the split-TF32 products
-    (three for an f32 corpus, two for bf16: 2 * N * d * 2B operations
-    each) over the TF32 peak; beside it, the 4 * N * d * B f32 operations
-    on the CUDA cores that the kernel no longer runs."""
-    nbytes = n * d * esize + 2 * d * b * 4 + n * 4 + n * b * 4
-    products = 3 if esize == 4 else 2
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = products * 4.0 * n * d * b / TF32_FLOPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes_ms": t_bytes, "bound_tf32_ms": t_ops,
-            "f32_cuda_core_ms": 4.0 * n * d * b / F32_FLOPS_PER_S * 1e3}
+    """K1's least time (``pem_score_work``): the bytes (corpus, queries,
+    the (N,) decay or ages, the (N, B) panel) over the HBM rate, against
+    the split-TF32 products (three for an f32 corpus, two for bf16:
+    2 * N * d * 2B operations each) over the TF32 peak; beside it, the
+    4 * N * d * B f32 operations on the CUDA cores that the kernel no
+    longer runs."""
+    from repro_torch.configs.flexvec import pem_score_work
+    from repro_torch.roofline.analysis import HW
+
+    work = pem_score_work(n, d, b, esize)
+    t, by = bound_ms(work)
+    return {"bound_ms": t, "bound_by": by,
+            "bound_bytes_ms": HW.bytes_s(work) * 1e3,
+            "bound_tf32_ms": HW.ops_s(work) * 1e3,
+            "f32_cuda_core_ms": work.flops / HW.f32_flops * 1e3}
 
 
 def phase_pem_score(torch) -> dict:
@@ -446,6 +456,7 @@ def adversarial_panel(torch, gen, b, n, k):
 
 
 def phase_topk(torch) -> dict:
+    from repro_torch.configs.flexvec import topk_work
     from repro_torch.kernels.topk.ops import topk
     from repro_torch.kernels.topk.ref import topk_ref
 
@@ -466,7 +477,7 @@ def phase_topk(torch) -> dict:
         ms = time_ms(torch, lambda: topk(s, k), 50)
         plain = time_ms(torch, lambda: topk_ref(s, k), 10)
         lib = time_ms(torch, lambda: torch.topk(s, k, dim=1), 50)
-        t, by = bound_ms(b * n * 4 + b * k * 8, float(b * n))
+        t, by = bound_ms(topk_work(b, n, k))
         row = {"phase": "kernel", "name": "topk", "b": b, "n": n, "k": k,
                "exact": exact, "max_abs_err": 0.0, "ms": ms,
                "plain_ms": plain, "library_ms": lib, "bound_ms": t,
@@ -510,6 +521,7 @@ def phase_topk(torch) -> dict:
 
 
 def phase_mmr(torch) -> dict:
+    from repro_torch.configs.flexvec import mmr_work
     from repro_torch.kernels.mmr import kernel as mmr_kernel
     from repro_torch.kernels.mmr.ops import NEG, mmr_select
     from repro_torch.kernels.mmr.ref import mmr_ref
@@ -556,8 +568,7 @@ def phase_mmr(torch) -> dict:
                 # the k dependent steps bound it in practice; the formula's
                 # floor is the live pool and rel read once, the picks
                 # written, or the k * live * d similarity products
-                t, by = bound_ms(b * (pool * d + bucket) * 4 + b * k * 8,
-                                 2.0 * b * k * pool * d)
+                t, by = bound_ms(mmr_work(b, pool, k, d, bucket))
                 row.update(bound_ms=t, bound_by=by)
                 rows[(b, k)] = row
             emit(row)
@@ -1066,7 +1077,236 @@ def service_shard_group(torch, svc, conn, sql, reqs) -> dict:
                        for s in st["shards"]]}
 
 
+FLEXVEC_CELLS = ("corpus_240k", "corpus_1m")  # corpus_67m: dry run only
+
+
+def _flexvec_kernels(torch, corpus, days, q, qs, over, pool, tol) -> dict:
+    """Each kernel of the step on the step's own inputs, held against its
+    plain version: K1 within ``tol``, K2's ids and values exact on K1's
+    panel, K3 on the gathered pool equal but for adjacent swaps of near
+    ties; their times beside the shared count's bounds, the plain
+    versions' and one library call's where one computes the same thing.
+    The step's pool (K2 on K1's panel) must hold the plain pool's members
+    but for near ties at its boundary score."""
+    from repro_torch.configs.flexvec import (HALF_LIFE, LAMBDA, _rows,
+                                             step_work)
+    from repro_torch.kernels.mmr.ops import mmr_select
+    from repro_torch.kernels.mmr.ref import mmr_ref
+    from repro_torch.kernels.pem_score.ops import pem_score
+    from repro_torch.kernels.pem_score.ref import (decay_factors,
+                                                   pem_score_days_ref)
+    from repro_torch.kernels.topk.ops import topk
+    from repro_torch.kernels.topk.ref import topk_ref
+
+    n, d = corpus.shape
+    b = q.shape[1]
+    dev = corpus.device
+    hl = torch.full((b,), HALF_LIFE, device=dev)
+    lam = torch.full((b,), LAMBDA, device=dev)
+    panel = torch.empty((b, n), device=dev)
+
+    def k1():
+        return pem_score(corpus, q, qs, days_ago=days, half_lives=hl,
+                         out=panel.T)
+
+    k1()
+    want = pem_score_days_ref(corpus, q, qs, days, hl)
+    k1_err = float((panel.T - want).abs().max())
+    v, i = topk(panel, over)
+    vr, ir = topk_ref(panel, over)
+    emb = _rows(corpus, i)
+    sel, mv = mmr_select(emb, v, pool, LAMBDA)
+    sr, mvr = mmr_ref(emb, v, pool, lam)
+    torch.cuda.synchronize()
+    if not k1_err <= tol:
+        raise AssertionError(f"flexvec pem_score: max error {k1_err} > {tol}")
+    if not (torch.equal(i, ir) and torch.equal(v, vr)):
+        raise AssertionError("flexvec topk: differs from the plain version "
+                             "on the same panel")
+    swaps = []
+    for r in range(b):
+        swaps += check_ranking(
+            f"flexvec mmr row {r}",
+            list(zip(sel[r].tolist(), v[r][sel[r].long()].tolist())),
+            list(zip(sr[r].tolist(), v[r][sr[r].long()].tolist())))
+    same = sel == sr
+    k3_err = float((mv[same] - mvr[same]).abs().max())
+    if k3_err > TOL:
+        raise AssertionError(f"flexvec mmr: values differ by {k3_err}")
+    wv, wi = topk_ref(want.T, over)  # the plain step's pool
+    boundary = 0
+    for r in range(b):
+        boundary += len(check_pool(
+            f"flexvec pool row {r}", (i[r].cpu().numpy(), v[r].cpu().numpy()),
+            (wi[r].cpu().numpy(), wv[r].cpu().numpy()),
+            tol)["boundary_near_ties"])
+    del want, wv, wi
+    qcat = torch.cat([q, qs], dim=1)
+    cost = step_work(n, b, over, pool, d=d, esize=corpus.element_size())
+
+    def k1_library():
+        both = torch.matmul(corpus if corpus.dtype == torch.float32
+                            else corpus.float(), qcat)
+        return decay_factors(days, hl) * both[:, :b] + both[:, b:]
+
+    times = {
+        "pem_score": (time_ms(torch, k1, 20),
+                      time_ms(torch, lambda: pem_score_days_ref(
+                          corpus, q, qs, days, hl), 5),
+                      time_ms(torch, k1_library, 5)),
+        "topk": (time_ms(torch, lambda: topk(panel, over), 20),
+                 time_ms(torch, lambda: topk_ref(panel, over), 5),
+                 time_ms(torch, lambda: torch.topk(panel, over, dim=1), 20)),
+        "gather": (time_ms(torch, lambda: _rows(corpus, i), 20), None, None),
+        "mmr": (time_ms(torch, lambda: mmr_select(emb, v, pool, LAMBDA), 10),
+                time_ms(torch, lambda: mmr_ref(emb, v, pool, lam), 1), None),
+    }
+    kernels = {}
+    for name, (ms, plain, lib) in times.items():
+        t, by = bound_ms(cost[name])
+        kernels[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": t, "bound_by": by}
+    kernels["pem_score"]["max_abs_err"] = k1_err
+    kernels["topk"]["max_abs_err"] = 0.0
+    kernels["mmr"].update(max_abs_err=k3_err, adjacent_swaps=swaps,
+                          ms_per_step=kernels["mmr"]["ms"] / pool)
+    return {"kernels": kernels,
+            "step_bound_ms": sum(k["bound_ms"] for k in kernels.values()),
+            "pool_boundary_near_ties": boundary}
+
+
+def phase_flexvec_arch(torch, seed: int) -> dict:
+    """The flexvec architecture entry (``configs.get_arch("flexvec")``) at
+    the paper's batched cells, 64 queries, each an MMR pool of 500 picked
+    from 1500, on 240,000 and 1,000,000 rows: built by
+    ``build(shape, make_local_mesh(), get_rules("default", ...))`` and
+    run on inputs made on the card from ``seed`` (a unit-normal corpus,
+    ages uniform on 0-90 days, q normal, q_sup = -0.5 q), in f32 and bf16,
+    one-stage and two-stage in a one-rank NCCL group.  One-stage runs are
+    held to the plain step (each kernel to its plain version, the pool's
+    members to the plain pool's, the picks equal but for adjacent swaps of
+    near ties); two-stage runs must equal them bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.flexvec import (DIM, SHAPES, FlexvecArch,
+                                             pem_serve_step_plain)
+    from repro_torch.dist.tuned import get_rules
+    from repro_torch.kernels.mmr import kernel as mmr_kernel
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # a step: one K1 launch, one top-k call (6 launches), one K3 launch
+    # (the plain versions of a CPU rehearsal count none)
+    expect = {"pem_score": 1, "topk": 6, "mmr": 1}
+    if DEVICE == "cpu":
+        expect = dict.fromkeys(expect, 0)
+    out = {"phase": "flexvec_arch", "seed": seed, "runs": []}
+    total = dict.fromkeys(expect, 0)
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(DEVICE)
+        rules = get_rules("default", mesh)
+        for shape in FLEXVEC_CELLS:
+            s = SHAPES[shape]
+            n, b, over, pool = s["n"], s["batch"], s["over"], s["pool"]
+            occupancy = mmr_kernel.shape(over, DIM)
+            base = torch.randn(n, DIM, generator=gen, device=dev)
+            base /= base.norm(dim=1, keepdim=True)
+            days = torch.rand(n, generator=gen, device=dev) * 90.0
+            q = torch.randn(DIM, b, generator=gen, device=dev)
+            qs = -0.5 * q
+            for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 2e-2)):
+                corpus = base.to(dtype)
+                args = (corpus, days, q, qs)
+                one = None
+                for two_stage in (False, True):
+                    arch = (get_arch("flexvec")
+                            if dtype == torch.float32 and not two_stage
+                            else FlexvecArch(dtype=dtype, two_stage=two_stage))
+                    spec = arch.build(shape, mesh, rules)
+                    for a, t in zip(spec.call_args(rules), args):
+                        if tuple(a.shape) != tuple(t.shape) or a.dtype != t.dtype:
+                            raise AssertionError(f"{shape}: the spec takes "
+                                                 f"{a.shape} {a.dtype}")
+                    torch.cuda.synchronize()
+                    resident = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    _reset_counts()
+                    idx, val = spec.fn(*args)
+                    torch.cuda.synchronize()
+                    counts = _counts()
+                    peak = torch.cuda.max_memory_allocated()
+                    name = (f"{shape} {str(dtype).split('.')[-1]} "
+                            f"{'two-stage' if two_stage else 'one-stage'}")
+                    if counts != expect:
+                        raise AssertionError(f"flexvec {name}: launches "
+                                             f"{counts}, expected {expect}")
+                    if tuple(idx.shape) != (b, pool) or not bool(
+                            torch.isfinite(val).all()):
+                        raise AssertionError(f"flexvec {name}: picks "
+                                             f"{tuple(idx.shape)} or values "
+                                             f"not finite")
+                    for k in total:
+                        total[k] += counts[k]
+                    row = {"cell": shape, "n": n, "b": b, "over": over,
+                           "pool": pool, "dtype": str(dtype).split(".")[-1],
+                           "two_stage": two_stage, "launches": counts,
+                           "step_ms": time_ms(torch, lambda: spec.fn(*args),
+                                              10),
+                           "k3_max_active_clusters":
+                               occupancy["max_active_clusters"],
+                           "k3_waves": -(-b // occupancy[
+                               "max_active_clusters"]),
+                           "resident_bytes_before": resident,
+                           "max_memory_allocated": peak}
+                    if two_stage:
+                        if not (torch.equal(idx.long(), one[0].long())
+                                and torch.equal(val, one[1])):
+                            raise AssertionError(f"flexvec {name}: not "
+                                                 f"bit-equal to one-stage")
+                        row["bit_equal_to_one_stage"] = True
+                    else:
+                        one = (idx, val)
+                        row.update(_flexvec_kernels(
+                            torch, corpus, days, q, qs, over, pool, tol))
+                        wi, wv = pem_serve_step_plain(*args, pool=pool,
+                                                      over=over)
+                        swaps = []
+                        for r in range(b):
+                            swaps += check_ranking(
+                                f"flexvec {name} row {r}",
+                                list(zip(idx[r].tolist(), val[r].tolist())),
+                                list(zip(wi[r].tolist(), wv[r].tolist())),
+                                tol)
+                        row.update(
+                            plain_step_ms=time_ms(
+                                torch, lambda: pem_serve_step_plain(
+                                    *args, pool=pool, over=over), 1),
+                            ranking_near_ties=swaps, plain_match=True)
+                    emit({"phase": "flexvec_arch", **row})
+                    out["runs"].append(row)
+                del corpus, args
+            del base, days, q, qs
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = total
+    emit({"phase": "flexvec_arch", "runs": len(out["runs"]),
+          "launches": total, "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the flexvec_arch phase's inputs")
+    cli = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -1088,6 +1328,10 @@ def main() -> None:
              "shard_group_1m": phase_shard_group_1m(torch, one_m)["launches"],
              "service_shard_group_240k":
                  main_path["service_shard_group"]["launches"]}
+    del one_m  # the 1M store's device copies: the next phase's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["flexvec_arch"] = phase_flexvec_arch(torch, cli.seed)["launches"]
 
     counts = main_path["launches"]
     picks = [

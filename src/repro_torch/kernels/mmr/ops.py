@@ -8,6 +8,8 @@ read from global memory by the same kernel).  ``lam`` is a scalar or a
 (B,) vector (the scalar broadcasts here), so one launch serves plans with
 different lambdas.  Padding slots carry rel = NEG and are never loaded;
 the kernel takes any n, so nothing is padded to the TPU's 128 multiples.
+A meta tensor (``launch/dryrun.py``) gets its outputs' shapes, with
+nothing launched.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ def mmr_select(
                          f"{tuple(rel.shape)}")
     if not 0 <= k <= n:
         raise ValueError(f"mmr_select: need 0 <= k <= n, got k={k}, n={n}")
+    if embeds.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"mmr_select: no kernel for device {embeds.device}")
     lam_t = (lam.to(device=embeds.device, dtype=torch.float32)
              if isinstance(lam, torch.Tensor)
              else torch.full((b,), float(lam), device=embeds.device))
@@ -47,8 +51,6 @@ def mmr_select(
         raise ValueError(f"mmr_select: lam must be a scalar or ({b},)")
     if embeds.device.type == "cpu":
         return mmr_ref(embeds, rel, k, lam_t)
-    if embeds.device.type != "cuda":
-        raise ValueError(f"mmr_select: no kernel for device {embeds.device}")
     if rel.device != embeds.device:
         raise ValueError("mmr_select: rel must be on the embeddings' device")
     if embeds.dtype != torch.float32 or rel.dtype != torch.float32:
@@ -57,7 +59,7 @@ def mmr_select(
         raise ValueError(f"mmr_select: pool {n} above the kernel's {MAX_POOL}")
     idx = torch.empty((b, k), dtype=torch.int32, device=embeds.device)
     val = torch.empty((b, k), dtype=torch.float32, device=embeds.device)
-    if b == 0 or k == 0:
+    if b == 0 or k == 0 or embeds.device.type == "meta":  # a dry run
         return idx, val
     if d % 4:
         # the kernel reads rows as float4; zero columns change no dot

@@ -5,7 +5,9 @@ the TPU block sizes and interpret switch: a CPU tensor takes the plain
 version (``ref.py``), a CUDA tensor launches ``csrc/pem_score.cu`` once.
 The kernel masks the ragged N, B and d edges itself, so nothing is padded.
 ``out=`` lets a caller receive the (N, B) scores in any strided view, such
-as the transpose of a (B, N) panel the top-k kernel reads directly.
+as the transpose of a (B, N) panel the top-k kernel reads directly.  A
+meta tensor (``launch/dryrun.py``) passes the same checks and gets its
+output's shape, with nothing launched.
 
 Keyword-only ``days_ago=`` (N,) with ``half_lives=`` (B,) replace
 ``decay``: each plan then gets its own factor 1 / (1 + days / half_life)
@@ -68,7 +70,7 @@ def pem_score(
             res = pem_score_ref(matrix, q_pre, q_sup,
                                 torch.ones(n) if decay is None else decay)
         return res if out is None else out.copy_(res)
-    _require(matrix.device.type == "cuda",
+    _require(matrix.device.type in ("cuda", "meta"),
              f"no kernel for device {matrix.device}")
     factors = [t for t in (decay, days_ago, half_lives) if t is not None]
     tensors = [q_pre, q_sup] + factors + ([] if out is None else [out])
@@ -81,16 +83,18 @@ def pem_score(
     _require(all(t.is_contiguous() for t in [matrix, q_pre, q_sup]
                  + factors),
              "corpus, queries and decay factors must be contiguous")
-    _require(all(t.data_ptr() % 16 == 0 for t in (decay, days_ago)
-                 if t is not None),
-             "decay and days_ago must be 16-byte aligned (TMA reads them)")
     # TMA reads the corpus: 16-byte aligned base and row stride
     _require(0 < d <= kernel.MAX_D
-             and (d * matrix.element_size()) % 16 == 0
-             and matrix.data_ptr() % 16 == 0,
+             and (d * matrix.element_size()) % 16 == 0,
              f"the kernel needs d <= {kernel.MAX_D} with 16-byte rows "
-             f"(d % 4 == 0 for float32, d % 8 == 0 for bfloat16; d={d}) "
-             f"and a 16-byte aligned corpus")
+             f"(d % 4 == 0 for float32, d % 8 == 0 for bfloat16; d={d})")
+    if matrix.device.type == "meta":  # a dry run: the shape, no launch
+        return out if out is not None else torch.empty(
+            (n, b), dtype=torch.float32, device="meta")
+    _require(all(t.data_ptr() % 16 == 0 for t in (matrix, decay, days_ago)
+                 if t is not None),
+             "the corpus, decay and days_ago must be 16-byte aligned (TMA "
+             "reads them)")
     if out is None:
         out = torch.empty((n, b), dtype=torch.float32, device=matrix.device)
     if n and b:

@@ -5,7 +5,8 @@ block sizes and interpret switch: a CPU tensor takes the plain version
 (``ref.py``), a CUDA tensor runs ``csrc/topk.cu``: a radix select of each
 row's K-th key, a compaction of the K survivors in index order and one
 sort of them, all enqueued by one call with no host synchronisation.
-``launches`` counts every kernel launch (six a call).
+``launches`` counts every kernel launch (six a call).  A meta tensor
+(``launch/dryrun.py``) gets its outputs' shapes, with nothing launched.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"topk: k must be >= 0, got {k}")
     if scores.device.type == "cpu":
         return topk_ref(scores, k)
-    if scores.device.type != "cuda":
+    if scores.device.type not in ("cuda", "meta"):
         raise ValueError(f"topk: no kernel for device {scores.device}")
     if scores.dtype != torch.float32:
         raise ValueError(f"topk: scores must be float32, got {scores.dtype}")
@@ -60,7 +61,7 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = scores.device
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
-    if b == 0 or k == 0:
+    if b == 0 or k == 0 or dev.type == "meta":  # meta: a dry run's shapes
         return vals, idx
     if n == 0:  # the kernel reads at least one column: all of them -inf
         scores = scores.new_full((b, k), float("-inf"))

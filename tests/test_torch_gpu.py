@@ -538,6 +538,35 @@ def _assert_same_mmr_ranking(got, want, tol=1e-5):
         p += 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flexvec_step_matches_plain(cuda, dtype):
+    """``configs/flexvec.pem_serve_step`` on the card (K1 into the panel,
+    one K2 call, the pool's gather, K3) against its plain version on the
+    same tensors: 20,000 rows, B = 8, over = 300, pool = 50."""
+    from repro_torch.configs.flexvec import (pem_serve_step,
+                                             pem_serve_step_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    n, b = 20_000, 8
+    corpus = _unit_rows(gen, n, 128, device=cuda).to(dtype)
+    days = torch.rand(n, generator=gen, device=cuda) * 90
+    q = torch.randn(128, b, generator=gen, device=cuda)
+
+    def counts():
+        return pem_score.launches, topk.launches, mmr_select.launches
+
+    before = counts()
+    gi, gv = pem_serve_step(corpus, days, q, -0.5 * q, pool=50, over=300)
+    launches = tuple(a - c for a, c in zip(counts(), before))
+    wi, wv = pem_serve_step_plain(corpus, days, q, -0.5 * q, pool=50,
+                                  over=300)
+    torch.cuda.synchronize()
+    assert launches == (1, 6, 1)  # a top-k call is six launches
+    for r in range(b):
+        _assert_same_mmr_ranking(list(zip(gi[r].tolist(), gv[r].tolist())),
+                                 list(zip(wi[r].tolist(), wv[r].tolist())))
+
+
 def test_bf16_worker_views_the_codes_on_the_card(cuda):
     """A bf16 shard's resident corpus is the truncated pack_bf16 codes
     viewed as bfloat16, not the f32 rows rounded to nearest."""

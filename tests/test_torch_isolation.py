@@ -38,8 +38,11 @@ def _port_modules():
 def test_port_modules_load_no_jax_and_no_reference():
     mods = _port_modules()
     assert {"repro_torch.core.backends", "repro_torch.dist",
-            "repro_torch.dist.pem_sharded",
-            "repro_torch.dist.procgroup"} <= set(mods)
+            "repro_torch.dist.pem_sharded", "repro_torch.dist.procgroup",
+            "repro_torch.dist.sharding", "repro_torch.dist.tuned",
+            "repro_torch.configs", "repro_torch.configs.flexvec",
+            "repro_torch.roofline.analysis", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -106,20 +109,32 @@ def test_entry_points_default_to_the_card():
     assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor's metadata on a device no kernel serves (the meta device
+    is the dry run's: the wrappers return shapes there).  Any operation
+    on it raises, so a wrapper must refuse it before touching it."""
+
+    @staticmethod
+    def __new__(cls, *shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device=torch.device("ipu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} ran on a device without a kernel")
+
+
 def test_wrappers_raise_on_a_device_without_a_kernel():
     from repro_torch.kernels.mmr.ops import mmr_select
     from repro_torch.kernels.pem_score.ops import pem_score
     from repro_torch.kernels.topk.ops import topk
 
-    meta = torch.device("meta")
     with pytest.raises(ValueError, match="no kernel"):
-        pem_score(torch.empty(4, 8, device=meta), torch.empty(8, 2, device=meta),
-                  torch.empty(8, 2, device=meta))
+        pem_score(_Elsewhere(4, 8), _Elsewhere(8, 2), _Elsewhere(8, 2))
     with pytest.raises(ValueError, match="no kernel"):
-        topk(torch.empty(2, 10, device=meta), 3)
+        topk(_Elsewhere(2, 10), 3)
     with pytest.raises(ValueError, match="no kernel"):
-        mmr_select(torch.empty(1, 10, 8, device=meta),
-                   torch.empty(1, 10, device=meta), 3)
+        mmr_select(_Elsewhere(1, 10, 8), _Elsewhere(1, 10), 3)
 
 
 def test_spawned_workers_import_no_jax_and_no_reference(tmp_path):
