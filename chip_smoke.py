@@ -51,9 +51,21 @@ reference package.  Prints one JSON object per line, in order:
    against its plain version on the step's inputs, the step against the
    plain step, two-stage bit-equal to one-stage; step and kernel times,
    bounds from the shared count, launches, K3's waves, peak memory;
-10. the ``kernels`` line (launch counts from the main path's run, and
+10. ``torch_engine`` (run before the 1M store is dropped, so it comes
+    after ``shard_group_1m``): ``TorchBackend``, the same chain as plain
+    PyTorch library calls, over the main path's 240k corpus (a service on
+    its SQLite connection) and the 1M store: the composed query through
+    ``flex_search`` cold and warm, the 64 engine requests, the two 1M
+    queries, each time beside HopperBackend's, rankings against the
+    oracle, its ``plan_cache`` stats, and no kernel launched;
+11. ``behavioral``: the paper's §4.4 suite (Tables 5-6) on the four
+    BEIR-like datasets at their published sizes (3,633-57,638 rows), 180
+    searches each on ``HopperBackend`` against fused-numpy: ids, scores,
+    the figures at their printed precision, K3 on every diverse search,
+    ms per search, each dataset's generator seed;
+12. the ``kernels`` line (launch counts from the main path's run, and
     each path's own run beside them);
-11. ``{"ok": true, "device": {...}}``, the last line.
+13. ``{"ok": true, "device": {...}}``, the last line.
 
 Any failure raises.  Rankings must equal the oracle's id for id, scores
 agree to 1e-5; a candidate pool must equal the oracle's as a set except
@@ -151,7 +163,8 @@ def launch_breakdown(torch, fn, reps: int = 10) -> dict:
     for ev in prof.key_averages():
         if ev.device_time_total > 0:
             name = ev.key.replace("(anonymous namespace)::", "")
-            out[name.split("(")[0]] = ev.device_time_total / reps
+            name = name.split("(")[0]  # kernels that share it add up
+            out[name] = out.get(name, 0.0) + ev.device_time_total / reps
     return out
 
 
@@ -665,8 +678,9 @@ def phase_main_path(torch) -> dict:
     if res.columns != cols:
         raise AssertionError(f"columns {res.columns} vs {cols}")
     near_ties = check_ranking("flex_search", res.rows, want_rows)
-    for q, got in zip(reqs, served):
-        want = svc.cache.search(q, now=NOW, engine="fused")[:10]
+    want_served = [svc.cache.search(q, now=NOW, engine="fused")[:10]
+                   for q in reqs]
+    for q, got, want in zip(reqs, served, want_served):
         near_ties += check_ranking(f"engine {q!r}", got, want)
     mixed["ranking_near_ties"] = []
     for q, got in zip(MIXED_REQUESTS, mixed_served):
@@ -714,6 +728,11 @@ def phase_main_path(torch) -> dict:
               **out["service_shard_group"]})
     finally:
         svc.close()
+    # what torch_engine reuses: the corpus's connection (not built again),
+    # the calls and the oracle's rankings of them
+    out["reuse"] = {"conn": conn, "embedder": emb, "sql": sql,
+                    "columns": cols, "oracle_sql": want_rows,
+                    "requests": reqs, "oracle_requests": want_served}
     return out
 
 
@@ -771,7 +790,8 @@ def phase_1m(torch) -> dict:
     # the 1M store, its rows and the rankings the next phases are held to
     return {"cache": cache, "ids": np.arange(SCALE1M_N, dtype=np.int64),
             "matrix": mat, "timestamps": ts, "dead": np.flatnonzero(~live),
-            "queries": queries, "served": served, "oracle": oracle}
+            "queries": queries, "served": served, "oracle": oracle,
+            "warm_ms": {name: out[name]["warm_ms"] for name, _ in queries}}
 
 
 def _check_launched(path: str, counts: dict, kernels) -> None:
@@ -1300,6 +1320,198 @@ def phase_flexvec_arch(torch, seed: int) -> dict:
     return out
 
 
+def phase_torch_engine(torch, main_path, one_m) -> dict:
+    """``TorchBackend``, the main path as plain PyTorch library calls (one
+    function per plan structure, no kernel), over the main path's 240k
+    corpus (a service on its SQLite connection: the corpus is not built
+    again) and the 1M store: the composed query through ``flex_search``
+    cold and warm, the 64 engine requests from 32 threads, and the 1M
+    store's two composed queries.  Every ranking is held to the
+    fused-numpy oracle's, each time stands beside HopperBackend's for the
+    same call in this run, a repeated structure builds nothing, and no
+    kernel launches."""
+    from repro_torch.core.backends import TorchBackend
+    from repro_torch.serve.engine import BatchedRetrievalEngine
+    from repro_torch.serve.retrieval import RetrievalService
+
+    t_phase = time.perf_counter()
+    reuse = main_path["reuse"]
+    backend = TorchBackend(DEVICE)
+    t0 = time.perf_counter()
+    svc = RetrievalService(reuse["conn"], dim=128, embedder=reuse["embedder"],
+                           now=NOW, engine=backend)
+    out = {"phase": "torch_engine", "chunks": MAIN_N,
+           "service_load_s": time.perf_counter() - t0}
+    sql, reqs = reuse["sql"], reuse["requests"]
+    _reset_counts()
+    lat = []
+    try:
+        t0 = time.perf_counter()
+        res = svc.flex_search(sql)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        if not res.ok:
+            raise RuntimeError(f"flex_search on TorchBackend: {res.error}")
+        builds = backend.plan_cache.builds
+        t0 = time.perf_counter()
+        res = svc.flex_search(sql)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        rebuilt = backend.plan_cache.builds - builds
+        # where a warm query's time goes: device time by kernel (one more
+        # call, traced), against its host-clock time above
+        sql_profile = launch_breakdown(torch, lambda: svc.flex_search(sql),
+                                       reps=1)
+        engine = BatchedRetrievalEngine(svc.cache, max_batch=32, now=NOW,
+                                        engine=backend)
+
+        def one(q):
+            t = time.perf_counter()
+            got = engine.search(q, 10)
+            lat.append((time.perf_counter() - t) * 1e3)
+            return got
+
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(max_workers=32) as ex:
+            served = list(ex.map(one, reqs))
+        wall = time.perf_counter() - t0
+        batches = engine.stats()["batches_served"]
+        engine.close()
+        plan_cache = svc.stats()["plan_cache"]
+    finally:
+        svc.close()
+    scale = {}
+    for name, tokens in one_m["queries"]:
+        t0 = time.perf_counter()
+        one_m["cache"].search(tokens, now=NOW, engine=backend)  # uploads
+        cold = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got = one_m["cache"].search(tokens, now=NOW, engine=backend)
+        scale[name] = {"cold_ms": cold,
+                       "warm_ms": (time.perf_counter() - t0) * 1e3,
+                       "hopper_warm_ms": one_m["warm_ms"][name],
+                       "device_ms": sum(launch_breakdown(
+                           torch, lambda: one_m["cache"].search(
+                               tokens, now=NOW, engine=backend),
+                           reps=1).values()) / 1e3,
+                       "ranking_near_ties": check_ranking(
+                           f"torch_engine 1M {name}", got,
+                           one_m["oracle"][name])}
+    counts = _counts()
+    if res.columns != reuse["columns"]:
+        raise AssertionError(f"columns {res.columns} vs {reuse['columns']}")
+    near = check_ranking("torch_engine flex_search", res.rows,
+                         reuse["oracle_sql"])
+    for q, got, want in zip(reqs, served, reuse["oracle_requests"]):
+        near += check_ranking(f"torch_engine engine {q!r}", got, want)
+    lat.sort()
+    out.update({
+        "flex_search_cold_ms": cold_ms, "flex_search_warm_ms": warm_ms,
+        "flex_search_device_ms": sum(sql_profile.values()) / 1e3,
+        "flex_search_device_us_by_kernel": dict(sorted(
+            sql_profile.items(), key=lambda kv: -kv[1])[:6]),
+        "hopper_flex_search_cold_ms": main_path["sql_first_ms"],
+        "hopper_flex_search_warm_ms": main_path["sql_warm_ms"],
+        "engine": {"requests": len(reqs), "wall_ms": wall * 1e3,
+                   "qps": len(reqs) / wall,
+                   "latency_p50_ms": lat[len(lat) // 2],
+                   "latency_p99_ms": lat[int(len(lat) * 0.99)],
+                   "batches_served": batches},
+        "hopper_engine": {k: main_path[k] for k in (
+            "engine_wall_ms", "qps", "latency_p50_ms", "latency_p99_ms",
+            "batches_served")},
+        "scale_1m": scale, "plan_cache": plan_cache,
+        "plan_cache_after_1m": backend.plan_cache.stats(),
+        "builds_on_repeat": rebuilt, "launches": counts,
+        "oracle_match": True, "ranking_near_ties": near,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    if any(counts.values()):
+        raise AssertionError(f"TorchBackend launched a kernel: {counts}")
+    if rebuilt:
+        raise AssertionError(f"a repeated structure built {rebuilt} "
+                             f"functions again")
+    return out
+
+
+def phase_behavioral(torch) -> dict:
+    """The paper's §4.4 behavioural suite (Tables 5-6,
+    ``repro_torch.bench.behavioral``) at the four datasets' published
+    document counts, 128 f32 dimensions: 30 queries x 6 plans each
+    through ``VectorCache`` on ``HopperBackend`` and on fused-numpy over
+    the same cache.  Ids must equal the oracle's but for adjacent swaps
+    whose two scores lie within 1e-5 of each other, each printed; scores
+    agree to 1e-5; the Table 5/6 figures are equal at the
+    precision the reference prints; and every diverse search launches
+    the mmr kernel."""
+    from repro_torch.bench import behavioral as BH
+    from repro_torch.core import modulations as M
+    from repro_torch.core.backends import HopperBackend
+    from repro_torch.data.beir import DATASET_SPECS
+
+    t_phase = time.perf_counter()
+    backend = HopperBackend(DEVICE)
+    out = {"phase": "behavioral", "datasets": []}
+    total = dict.fromkeys(_counts(), 0)
+    for name, spec in DATASET_SPECS.items():
+        t0 = time.perf_counter()
+        suite = BH.setup(name)
+        setup_s = time.perf_counter() - t0
+        n = len(suite.ds.doc_texts)
+        if n != spec[0] or suite.cache.matrix.shape != (n, BH.DIM):
+            raise AssertionError(f"behavioral {name}: {n} rows")
+        # the corpus's upload, outside the counted and timed searches
+        suite.cache.search_plan(M.ModulationPlan(
+            query=M.l2_normalize(suite.emb(suite.ds.queries[0]))),
+            now=suite.ds.now, engine=backend)
+        torch.cuda.synchronize()
+        _reset_counts()
+        got = BH.run_dataset(name, backend, suite=suite)
+        counts = _counts()
+        want = BH.run_dataset(name, "fused-numpy", suite=suite)
+        swaps = []
+        for plan in BH.PLANS:
+            for qi, (g, w) in enumerate(zip(got["rankings"][plan],
+                                            want["rankings"][plan])):
+                for sw in check_ranking(f"behavioral {name} {plan} q{qi}",
+                                        g, w):
+                    gap = abs(sw["scores"][0] - sw["scores"][1])
+                    if gap > TOL:
+                        raise AssertionError(
+                            f"behavioral {name} {plan} q{qi}: swapped "
+                            f"scores {sw['scores']} differ by {gap}")
+                    swaps.append({"plan": plan, "query": qi, **sw})
+        figures = BH.table5_rows(got) + [BH.table6_row(got)]
+        if figures != BH.table5_rows(want) + [BH.table6_row(want)]:
+            raise AssertionError(f"behavioral {name}: figures {figures} "
+                                 f"differ from the oracle's")
+        diverse = len(got["rankings"]["diverse"])
+        if DEVICE == "cuda":  # a CPU rehearsal's plain versions count none
+            _check_launched(f"behavioral {name}", counts,
+                            ("pem_score", "topk", "mmr"))
+            if counts["mmr"] < diverse:
+                raise AssertionError(
+                    f"behavioral {name}: {counts['mmr']} mmr launches for "
+                    f"{diverse} diverse searches")
+        for k in total:
+            total[k] += counts[k]
+        row = {"phase": "behavioral", "dataset": name, "rows": n,
+               "effective_seed": got["effective_seed"],
+               "searches": got["searches"], "setup_s": setup_s,
+               "figures": dict(figures), "launches": counts,
+               "ms_per_search": got["search_s"] / got["searches"] * 1e3,
+               "oracle_ms_per_search":
+                   want["search_s"] / want["searches"] * 1e3,
+               "oracle_match": True, "adjacent_swaps": swaps}
+        emit(row)
+        out["datasets"].append(row)
+        del suite
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "behavioral", "datasets": len(out["datasets"]),
+          "launches": total, "seconds": out["seconds"]})
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -1328,10 +1540,14 @@ def main() -> None:
              "shard_group_1m": phase_shard_group_1m(torch, one_m)["launches"],
              "service_shard_group_240k":
                  main_path["service_shard_group"]["launches"]}
+    paths["torch_engine"] = phase_torch_engine(torch, main_path,
+                                               one_m)["launches"]
+    main_path.pop("reuse")["conn"].close()
     del one_m  # the 1M store's device copies: the next phase's memory
     gc.collect()
     torch.cuda.empty_cache()
     paths["flexvec_arch"] = phase_flexvec_arch(torch, cli.seed)["launches"]
+    paths["behavioral"] = phase_behavioral(torch)["launches"]
 
     counts = main_path["launches"]
     picks = [

@@ -28,11 +28,16 @@ Backends:
     fused-numpy      folded two-matvec formulation (one corpus stream)
     HopperBackend    pem_score -> topk -> mmr kernels on the card
                      (``device="cpu"`` runs their plain versions)
+    TorchBackend     the same chain as plain PyTorch library calls, one
+                     function per :class:`PlanStructure` (the reference's
+                     jit-jax): the yardstick the kernels are timed beside
 
 The numpy backends are registered by name and keep the host path (full
 panel + numpy selection), the oracle the Hopper backend is held against.
-:class:`HopperBackend` needs a device, so callers construct it and pass
-the instance; :func:`get_backend` passes instances straight through.
+:class:`HopperBackend` and :class:`TorchBackend` need a device, so callers
+construct them and pass the instance; :func:`get_backend` passes
+instances straight through.  No path switches to :class:`TorchBackend`
+on its own: it launches none of the kernels.
 
 Live corpora (`repro_torch.core.segments`) score through
 :func:`score_select_segments`: each segment scores independently (its
@@ -46,9 +51,10 @@ entry per warm segment, so appending a segment uploads ONLY the delta.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -58,7 +64,9 @@ __all__ = [
     "ExecutionBackend",
     "HopperBackend",
     "ShardedBackend",
+    "TorchBackend",
     "PlanStructure",
+    "PlanCache",
     "get_backend",
     "register_backend",
     "list_backends",
@@ -95,6 +103,20 @@ def _pow2_bucket(x: int) -> int:
     if x <= 0:
         return 0
     return 1 << (x - 1).bit_length()
+
+
+def _half_lives(plans: Sequence[M.ModulationPlan]) -> np.ndarray:
+    """Per-plan half-life column; inf makes the decay factor exactly 1.0."""
+    return np.asarray(
+        [p.decay.half_life_days if p.decay is not None else np.inf
+         for p in plans],
+        dtype=np.float32,
+    )
+
+
+def _days_f32(days_ago: Optional[np.ndarray], n: int) -> np.ndarray:
+    return (np.zeros(n, np.float32) if days_ago is None
+            else np.asarray(days_ago, np.float32))
 
 
 def _empty_candidates() -> Candidates:
@@ -176,6 +198,40 @@ def _pool_widths(widths, mask, n: int, batch: int) -> np.ndarray:
     return pw.astype(np.int32)
 
 
+def _panel_inputs(plans, structure: "PlanStructure", use_mmr: bool):
+    """Runtime panel inputs padded to ``structure.batch`` — a panel
+    structure pow2-buckets the batch, so padded columns carry zero
+    queries / inf half-life / lam 1.0 and slice away on the host."""
+    q_pre, q_sup = M.fold_plans(plans)
+    q_pre = np.asarray(q_pre, np.float32)
+    q_sup = np.asarray(q_sup, np.float32)
+    half = _half_lives(plans)
+    lams = np.asarray(
+        [float(p.diverse.lam) if (use_mmr and p.diverse is not None) else 1.0
+         for p in plans], np.float32)
+    bpad = structure.batch - len(plans)
+    if bpad:
+        q_pre = np.pad(q_pre, ((0, 0), (0, bpad)))
+        q_sup = np.pad(q_sup, ((0, 0), (0, bpad)))
+        half = np.pad(half, (0, bpad), constant_values=np.inf)
+        lams = np.pad(lams, (0, bpad), constant_values=1.0)
+    return q_pre, q_sup, half, lams
+
+
+def _expand_bias(
+    score_bias: np.ndarray, n_rows: int, batch: int, nplans: int
+) -> np.ndarray:
+    """Canonical (n_rows, batch) float32 additive-bias panel: a shared
+    (n,) bias broadcasts across plans, an (n, B) panel keeps its columns;
+    batch padding is zero (no-op bias)."""
+    b = np.asarray(score_bias, np.float32)
+    if b.ndim == 1:
+        b = np.repeat(b[:, None], nplans, axis=1)
+    out = np.zeros((n_rows, batch), np.float32)
+    out[:b.shape[0], :b.shape[1]] = b
+    return out
+
+
 def _to_device(array: np.ndarray, device):
     """Host array -> tensor on ``device`` (no copy on the CPU)."""
     import torch
@@ -207,8 +263,8 @@ def _kernel_device(device, owner: str):
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"{owner}: no CUDA device; pass device='cpu' to run the "
-                "kernels' plain versions")
+                f"{owner}: no CUDA device; pass device='cpu' to run on "
+                "the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -320,19 +376,26 @@ class _DeviceMMRMixin:
             out.index_copy_(0, _to_device(pos, self.device), rows)
         return out
 
+    def _pool_mmr(self, emb, rel, k: int, lams):
+        """Selection positions (B, k) over padded pools: ``emb`` (B, W, d),
+        ``rel`` (B, W) with NEG past each pool's true width, ``lams`` (B,).
+        One ``mmr`` kernel launch here; :class:`TorchBackend` runs the
+        plain version instead."""
+        from repro_torch.kernels.mmr.ops import mmr_select
+
+        return mmr_select(emb, rel, k, lams)[0]
+
     def mmr_pool_segments_batch(self, segments, pools, ks, lams):
         """One device call for a COHORT of merged diverse pools.
 
         ``pools`` is a list of per-plan ``(gidx, vals)`` merged unions,
         ``ks``/``lams`` the matching final counts and MMR lambdas.  Every
         pool pads to the cohort's widest (padding carries rel = NEG) and
-        the whole (B, width, d) stack runs through ONE ``mmr`` kernel
-        launch with a per-plan lambda vector — one device sync for the
+        the whole (B, width, d) stack runs through ONE :meth:`_pool_mmr`
+        call with a per-plan lambda vector — one device sync for the
         batch.  Returns per-plan selection-position arrays (empty for
         k == 0 pools).
         """
-        from repro_torch.kernels.mmr.ops import mmr_select
-
         sizes = [int(g.size) for g, _ in pools]
         ks = [max(0, min(int(k), s)) for k, s in zip(ks, sizes)]
         live = [j for j, (s, k) in enumerate(zip(sizes, ks)) if s and k]
@@ -352,19 +415,18 @@ class _DeviceMMRMixin:
         rel = np.full((len(live), width), _MMR_NEG, np.float32)
         for row, j in enumerate(live):
             rel[row, :sizes[j]] = pools[j][1]
-        sel, _ = mmr_select(
+        sel = self._pool_mmr(
             stack.view(len(live), width, dim), _to_device(rel, self.device),
             max(ks[j] for j in live),
             _to_device(np.asarray([lams[j] for j in live], np.float32),
-                       self.device))
-        sel = sel.cpu().numpy()
+                       self.device)).cpu().numpy()
         for row, j in enumerate(live):
             out[j] = sel[row, :ks[j]].astype(np.int64)
         return out
 
 
 # ---------------------------------------------------------------------------
-# Plan structure
+# Plan structure + per-structure function cache
 # ---------------------------------------------------------------------------
 
 
@@ -374,10 +436,12 @@ class PlanStructure:
     keys its compiled graphs on it.
 
     The Hopper kernels take exact shapes and compile nothing per call, so
-    the port reads one field: ``width``, the pow2-bucketed top-k width,
-    which makes the Hopper backend select exactly as wide a pool as the
-    reference's device backends do.  Suppress count, top-k width and the
-    corpus row count are bucketed (padded up to powers of two).
+    :class:`HopperBackend` reads one field: ``width``, the pow2-bucketed
+    top-k width, which makes it select exactly as wide a pool as the
+    reference's device backends do.  :class:`TorchBackend` keys its
+    :class:`PlanCache` on the whole structure, as the reference's jit-jax
+    does.  Suppress count, top-k width and the corpus row count are
+    bucketed (padded up to powers of two).
     """
 
     batch: int            # B — number of plans folded into the panel
@@ -428,6 +492,67 @@ class PlanStructure:
             panel=panel,
             bias=bias,
         )
+
+
+class PlanCache:
+    """Per-structure functions keyed on plan STRUCTURE, not plan content.
+
+    :class:`TorchBackend` builds one specialized function per
+    :class:`PlanStructure`; distinct query texts with the same shape hit
+    the cache and never rebuild, while a genuinely new shape (e.g. a new
+    suppress-count bucket) builds exactly once.
+
+    ``traces`` keeps the meaning of the reference's ``jax_traces``, which
+    counts how often a traced body runs: eager PyTorch traces nothing, so
+    here it counts how often a per-structure function is built, bumped
+    by the builder itself.  Tests pin the no-rebuild contract on it.
+
+    The cache is bounded with LRU eviction at ``maxsize``: every hit
+    refreshes the entry, so the hot segments' functions stay resident no
+    matter how many one-off shapes stream past.  Counters surface through
+    ``RetrievalService.stats()["plan_cache"]`` via :meth:`stats`.
+    """
+
+    def __init__(
+        self,
+        builder: Callable[[PlanStructure], Callable],
+        maxsize: int = 64,
+    ) -> None:
+        self._builder = builder
+        self._fns: "OrderedDict[PlanStructure, Callable]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.maxsize = maxsize
+        self.builds = 0      # cache misses (specialized functions built)
+        self.hits = 0        # cache hits (no build)
+        self.evictions = 0   # LRU evictions (bounded retention)
+        self.traces = 0      # per-structure functions built, by the builder
+
+    def get(self, structure: PlanStructure) -> Callable:
+        with self._lock:
+            fn = self._fns.get(structure)
+            if fn is not None:
+                self._fns.move_to_end(structure)
+                self.hits += 1
+                return fn
+            self.builds += 1
+            fn = self._fns[structure] = self._builder(structure)
+            while len(self._fns) > self.maxsize:
+                self._fns.popitem(last=False)
+                self.evictions += 1
+            return fn
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {
+                "entries": len(self._fns),
+                "hits": self.hits,
+                "builds": self.builds,
+                "evictions": self.evictions,
+                "traces": self.traces,
+            }
+
+    def __len__(self) -> int:
+        return len(self._fns)
 
 
 # ---------------------------------------------------------------------------
@@ -616,9 +741,7 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
             ages = dict(
                 days_ago=_to_device(np.asarray(days_ago, np.float32),
                                     self.device),
-                half_lives=_to_device(np.asarray(
-                    [p.decay.half_life_days if p.decay is not None
-                     else np.inf for p in plans], np.float32), self.device))
+                half_lives=_to_device(_half_lives(plans), self.device))
         # the transposed view takes the (N, B) scores the kernel computes
         # straight into the (B, N) rows top-k reads
         pem_score(self._device_matrix(matrix),
@@ -783,9 +906,7 @@ class ShardedBackend(HopperBackend):
         decay = any(p.decay is not None for p in plans)
         if decay:
             days = np.asarray(days_ago, np.float32)
-            half_lives = np.asarray(
-                [p.decay.half_life_days if p.decay is not None else np.inf
-                 for p in plans], np.float32)
+            half_lives = _half_lives(plans)
         blocks = self._device_matrix(matrix)
         n_local = -(-matrix.shape[0] // self.n_shards)
         out = []
@@ -891,6 +1012,156 @@ class ShardedBackend(HopperBackend):
                 out.index_copy_(0, _to_device(pos, self.device),
                                 rows.to(self.device))
         return out
+
+
+class TorchBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
+    """The fused formulation as plain PyTorch library calls: the port of
+    the reference's ``JitJaxBackend``, and the end-to-end yardstick that
+    :class:`HopperBackend`'s kernels are timed beside.
+
+    :meth:`score_select` runs f32 ``torch.matmul``, the decay factor,
+    bias and mask, selection in ``jax.lax.top_k``'s order (a stable
+    descending sort of the total-order key,
+    :func:`~repro_torch.kernels.topk.ref.topk_ref`) and, for diverse
+    plans, the plain greedy MMR
+    (:func:`~repro_torch.kernels.mmr.ref.mmr_ref`, the pool's gram matrix
+    once), all on ``device``: only the final (B, k) candidates come back.
+    Its products are full f32, so it refuses to be built while TF32
+    matmuls are on (PyTorch's default is off).  Each
+    :class:`PlanStructure` gets one function from :attr:`plan_cache`: it
+    drops the decay factor when no plan decays, the suppress product when
+    no plan suppresses, and the MMR tail when no plan is diverse.  Rows,
+    width, MMR steps and batch bucket as the reference's do; the rows
+    past the corpus are -inf score rows, so the corpus is never padded.
+    The merged per-segment pool runs the same loop.
+
+    It launches none of the Hopper kernels, and no path switches to it on
+    its own.  ``device="cuda"`` (the default) raises on a machine without
+    a card; ``device="cpu"`` runs the same calls on the CPU.
+    """
+
+    name = "torch"
+
+    def __init__(self, device: str = "cuda") -> None:
+        import torch
+
+        self.device = _kernel_device(device, "TorchBackend")
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "TorchBackend computes full-f32 products: TF32 matmuls are "
+                "on (torch.backends.cuda.matmul.allow_tf32)")
+        self.plan_cache = PlanCache(self._build_select)
+
+    def _upload(self, matrix: np.ndarray):
+        # the library products are f32: a bf16-code corpus widens once
+        return _corpus_tensor(matrix, self.device).float()
+
+    def _build_select(self, structure: PlanStructure):
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.mmr.ref import mmr_ref
+        from repro_torch.kernels.topk.ref import topk_ref
+
+        self.plan_cache.traces += 1
+        s = structure
+
+        def select(mat, q_pre, q_sup, days, half_lives, mask, lams, pool_w,
+                   bias):
+            n = mat.shape[0]
+            scores = mat @ q_pre
+            if s.has_decay:
+                scores = scores * (
+                    1.0 / (1.0 + days[:, None] / half_lives[None, :]))
+            if s.suppress_bucket:
+                scores = scores + mat @ q_sup
+            if s.bias:
+                # hybrid lexical leg: additive fusion before mask/top-k
+                scores = scores + bias
+            if mask is not None:
+                scores = torch.where(mask if s.panel else mask[:, None],
+                                     scores, float("-inf"))
+            # the row bucket's padding: -inf rows after the corpus's
+            scores = F.pad(scores.T, (0, s.n_rows - n), value=float("-inf"))
+            v, i = topk_ref(scores, s.width)
+            i = i.long()
+            if s.mmr_k:
+                # fused diverse tail over the (B, width) pool: slots past a
+                # plan's true pool carry NEG (padding rows gather a real
+                # row: never picked), and re-mask to -inf after, like top-k
+                # padding
+                emb = mat.index_select(0, i.clamp(max=n - 1).reshape(-1))
+                live = (torch.arange(i.shape[1], device=v.device)[None, :]
+                        < pool_w[:, None])
+                sel = mmr_ref(emb.view(*i.shape, -1),
+                              torch.where(live, v, _MMR_NEG), s.mmr_k,
+                              lams)[0].long()
+                i = torch.gather(i, 1, sel)
+                v = torch.gather(v, 1, sel)
+                keep = (torch.arange(s.mmr_k, device=v.device)[None, :]
+                        < pool_w[:, None])
+                v = torch.where(keep, v, float("-inf"))
+            return i, v
+
+        return select
+
+    def score_panel(self, matrix, days_ago, plans):
+        for p in plans:
+            _require_days(p, days_ago)
+        q_pre, q_sup = M.fold_plans(plans)
+        dev = self.device
+        mat = self._device_matrix(matrix)
+        days = _to_device(_days_f32(days_ago, matrix.shape[0]), dev)
+        half = _to_device(_half_lives(plans), dev)
+        decay = 1.0 / (1.0 + days[:, None] / half[None, :])
+        out = (decay * (mat @ _to_device(np.asarray(q_pre, np.float32), dev))
+               + mat @ _to_device(np.asarray(q_sup, np.float32), dev))
+        return out.cpu().numpy()
+
+    def score_select(self, matrix, days_ago, plans, ks, *, mask=None,
+                     fused_mmr=None, score_bias=None, cohort=False):
+        for p in plans:
+            _require_days(p, days_ago)
+        n = matrix.shape[0]
+        if n == 0:
+            return [_empty_candidates() for _ in plans]
+        widths = [selection_width(p, k, n) for p, k in zip(plans, ks)]
+        use_mmr = self._use_mmr(plans, fused_mmr)
+        panel2d = mask is not None and mask.ndim == 2
+        structure = PlanStructure.of(plans, widths, n, ks=ks,
+                                     device_mmr=use_mmr, panel=panel2d,
+                                     bias=score_bias is not None,
+                                     cohort=cohort)
+        fn = self.plan_cache.get(structure)
+        q_pre, q_sup, half_lives, lams = _panel_inputs(plans, structure,
+                                                       use_mmr)
+        live = None
+        if panel2d:  # padded plan columns see no row
+            live = np.zeros((n, structure.batch), dtype=bool)
+            live[:, :len(plans)] = mask
+        elif mask is not None:
+            live = np.asarray(mask, bool)
+        dev = self.device
+        pool_w = _pool_widths(widths, mask, n, structure.batch)
+        i, v = fn(
+            self._device_matrix(matrix), _to_device(q_pre, dev),
+            _to_device(q_sup, dev), _to_device(_days_f32(days_ago, n), dev),
+            _to_device(half_lives, dev),
+            None if live is None else _to_device(live, dev),
+            _to_device(lams, dev), _to_device(pool_w.astype(np.int64), dev),
+            (_to_device(_expand_bias(score_bias, n, structure.batch,
+                                     len(plans)), dev)
+             if structure.bias else None))
+        # with the fused MMR tail every plan comes back final-k (plain
+        # plans ride the lam = 1.0 identity)
+        out_w = ([min(max(k, 0), w) for k, w in zip(ks, widths)]
+                 if use_mmr else widths)
+        return _slice_candidates(i.cpu().numpy(), v.cpu().numpy(), out_w)
+
+    def _pool_mmr(self, emb, rel, k: int, lams):
+        from repro_torch.kernels.mmr.ref import mmr_ref
+
+        return mmr_ref(emb, rel, k, lams)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ Greedy argmax over the unselected pool, first occurrence on ties; the
 first pick is pure relevance (the empty selection's NEG sentinel counts
 as zero penalty, as in ``mmr_select_np``).  Taken slots and padding (rel
 at or below NEG/2) are pinned to NEG after the blend, so lam = 0 cannot
-make padding finite.  ``lam`` is per row, (B,).
+make padding finite.  ``lam`` is per row, (B,).  The pool's gram matrix is
+computed once (``torch.bmm``, f32: TF32 is off, PyTorch's default) and
+each step gathers one of its rows, as the reference's jit-jax engine
+does.
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ def mmr_ref(
     lam: torch.Tensor,     # (B,)      per-row lambda
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (indices (B, k) int32 in selection order, mmr scores (B, k))."""
-    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 similarities
     e = embeds.to(torch.float32)
     r = rel.to(torch.float32)
     b, n, _ = e.shape
@@ -35,6 +37,7 @@ def mmr_ref(
     max_sim = torch.full((b, n), NEG, dtype=torch.float32, device=r.device)
     taken = torch.zeros((b, n), dtype=torch.bool, device=r.device)
     invalid = r <= NEG * 0.5
+    gram = torch.bmm(e, e.transpose(1, 2))
     idx = torch.zeros((b, k), dtype=torch.int32, device=r.device)
     val = torch.zeros((b, k), dtype=torch.float32, device=r.device)
     for i in range(k):
@@ -44,7 +47,6 @@ def mmr_ref(
         v, j = mmr.max(dim=1)  # first maximal index on ties
         idx[:, i] = j.to(torch.int32)
         val[:, i] = v
-        sim = torch.bmm(e, e[rows, j][:, :, None])[:, :, 0]
-        max_sim = torch.maximum(max_sim, sim)
+        max_sim = torch.maximum(max_sim, gram[rows, j])
         taken[rows, j] = True
     return idx, val

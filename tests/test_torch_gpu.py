@@ -327,13 +327,11 @@ def test_mmr_exhausted_pool_matches_plain(cuda):
     torch.testing.assert_close(val, vr, atol=1e-5, rtol=1e-5)
 
 
-def test_hopper_backend_matches_plain_chain(cuda):
-    """The whole score -> select -> MMR chain on the card against the same
-    backend on the CPU (the kernels' plain versions) over a segmented
-    store with tombstones."""
+def _tombstoned_store_and_plans():
+    """A 30,000 x 128 store in three segments with 5% tombstones, and
+    three plans: decay + diverse, suppress, trajectory + diverse at
+    lambda 0; (store, plans, ks, now)."""
     from repro_torch.core import modulations as M
-    from repro_torch.core.backends import (HopperBackend,
-                                           score_select_segments)
     from repro_torch.core.grammar import parse
     from repro_torch.core.segments import store_from_arrays
     from repro_torch.embed import HashEmbedder
@@ -355,13 +353,70 @@ def test_hopper_backend_matches_plain_chain(cuda):
         "similar:rendering pipeline from:sketch to:production diverse",
     )]
     plans[2] = dataclasses.replace(plans[2], diverse=M.DiverseSpec(lam=0.0))
-    ks = [50, 10, 30]
+    return store, plans, [50, 10, 30], now
+
+
+def test_hopper_backend_matches_plain_chain(cuda):
+    """The whole score -> select -> MMR chain on the card against the same
+    backend on the CPU (the kernels' plain versions) over a segmented
+    store with tombstones."""
+    from repro_torch.core.backends import (HopperBackend,
+                                           score_select_segments)
+
+    store, plans, ks, now = _tombstoned_store_and_plans()
     got = score_select_segments(HopperBackend("cuda"), store.segments,
                                 plans, ks, now=now)
     want = score_select_segments(HopperBackend("cpu"), store.segments,
                                  plans, ks, now=now)
     for (gi, gv), (wi, wv) in zip(got, want):
         _assert_same_ranking(gi, gv, wi, wv)
+
+
+def test_torch_backend_equals_hopper_on_the_card(cuda):
+    """``TorchBackend("cuda")`` (library calls, no kernel launched) against
+    ``HopperBackend("cuda")`` on the same plans and store."""
+    from repro_torch.core.backends import (HopperBackend, TorchBackend,
+                                           score_select_segments)
+
+    store, plans, ks, now = _tombstoned_store_and_plans()
+    before = (pem_score.launches, topk.launches, mmr_select.launches)
+    torch_be = TorchBackend("cuda")
+    got = score_select_segments(torch_be, store.segments, plans, ks, now=now)
+    again = score_select_segments(torch_be, store.segments, plans, ks,
+                                  now=now)
+    assert (pem_score.launches, topk.launches, mmr_select.launches) == before
+    assert torch_be.plan_cache.stats()["traces"] == len(torch_be.plan_cache)
+    assert torch_be.plan_cache.hits > 0
+    want = score_select_segments(HopperBackend("cuda"), store.segments,
+                                 plans, ks, now=now)
+    for (gi, gv), (ai, av), (wi, wv) in zip(got, again, want):
+        np.testing.assert_array_equal(gi, ai)
+        _assert_same_ranking(gi, gv, wi, wv)
+
+
+def test_behavioral_suite_on_the_card(cuda):
+    """Tables 5-6 on nfcorpus-like at its full 3,633 rows: both engines on
+    the card against fused-numpy on the same cache, ids equal but for
+    near ties, figures equal at the printed precision, and every diverse
+    search through the mmr kernel on HopperBackend."""
+    from repro_torch.bench import behavioral as BH
+    from repro_torch.core.backends import HopperBackend, TorchBackend
+
+    suite = BH.setup("nfcorpus-like")
+    want = BH.run_dataset("nfcorpus-like", "fused-numpy", suite=suite)
+    for engine in (HopperBackend("cuda"), TorchBackend("cuda")):
+        k3 = mmr_select.launches
+        got = BH.run_dataset("nfcorpus-like", engine, suite=suite)
+        if engine.name == "hopper":
+            assert mmr_select.launches - k3 >= BH.N_QUERIES
+        else:
+            assert mmr_select.launches == k3
+        for plan in BH.PLANS:
+            for g, w in zip(got["rankings"][plan], want["rankings"][plan]):
+                _assert_same_ranking(*(np.asarray(c) for c in zip(*g)),
+                                     *(np.asarray(c) for c in zip(*w)))
+        assert BH.table5_rows(got) == BH.table5_rows(want)
+        assert BH.table6_row(got) == BH.table6_row(want)
 
 
 def _assert_same_ranking(gi, gv, wi, wv, tol=1e-5):

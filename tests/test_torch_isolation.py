@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, nothing of ``repro``, the card by default.
 
 * A fresh interpreter imports every ``repro_torch`` module and finds
-  neither ``jax`` nor any ``repro`` module loaded.
+  neither ``jax`` nor any ``repro`` or ``benchmarks`` module loaded.
 * No source of the port (nor ``chip_smoke.py``, which drives it on the
-  card) imports JAX or the reference package.
+  card) imports JAX, the reference package or its benchmarks.
 * The entry points default to the card and raise where there is none,
   instead of running on the CPU.
 * A spawned shard worker, which imports the port afresh, loads neither.
@@ -42,14 +42,16 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.dist.sharding", "repro_torch.dist.tuned",
             "repro_torch.configs", "repro_torch.configs.flexvec",
             "repro_torch.roofline.analysis", "repro_torch.launch.mesh",
-            "repro_torch.launch.dryrun"} <= set(mods)
+            "repro_torch.launch.dryrun", "repro_torch.metrics",
+            "repro_torch.metrics.ranking", "repro_torch.data.beir",
+            "repro_torch.bench.behavioral",
+            "repro_torch.launch.hillclimb"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'"
-        " or m.startswith('jax.') or m == 'repro'"
-        " or m.startswith('repro.'))\n"
+        "bad = sorted(m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'repro', 'benchmarks'))\n"
         "print(len(sys.modules) and ','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -61,7 +63,8 @@ def test_port_modules_load_no_jax_and_no_reference():
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)"
-    r"|from\s+repro\b(?!_))", re.M)
+    r"|from\s+repro\b(?!_)|import\s+benchmarks\b|from\s+benchmarks\b)",
+    re.M)
 
 
 def test_port_sources_import_no_jax_and_no_reference():
@@ -76,7 +79,9 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the defaults run there")
     import sqlite3
 
-    from repro_torch.core.backends import HopperBackend, ShardedBackend
+    from repro_torch.bench import behavioral
+    from repro_torch.core.backends import (HopperBackend, ShardedBackend,
+                                           TorchBackend)
     from repro_torch.core.vectorcache import VectorCache
     from repro_torch.dist.procgroup import ProcessGroup
     from repro_torch.serve.engine import BatchedRetrievalEngine
@@ -87,6 +92,12 @@ def test_entry_points_default_to_the_card():
         HopperBackend()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HopperBackend("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchBackend()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchBackend("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        behavioral.run(datasets=["nfcorpus-like"])
     conn = sqlite3.connect(":memory:")
     build_schema(conn, "empty")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -102,11 +113,14 @@ def test_entry_points_default_to_the_card():
     svc = RetrievalService(conn, dim=8, engine="fused-numpy")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         svc.shard_group(2)
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--chunks", "50"],
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    for cli in (["repro_torch.launch.serve", "--chunks", "50"],
+                ["repro_torch.bench.behavioral", "--datasets",
+                 "nfcorpus-like"]):
+        out = subprocess.run(
+            [sys.executable, "-m", *cli],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
 class _Elsewhere(torch.Tensor):
