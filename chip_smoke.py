@@ -62,10 +62,28 @@ reference package.  Prints one JSON object per line, in order:
     BEIR-like datasets at their published sizes (3,633-57,638 rows), 180
     searches each on ``HopperBackend`` against fused-numpy: ids, scores,
     the figures at their printed precision, K3 on every diverse search,
-    ms per search, each dataset's generator seed;
-12. the ``kernels`` line (launch counts from the main path's run, and
+    ms per search, each dataset's generator seed; then each kernel alone
+    on a search's inputs at fiqa-like's 57,638 x 128 (K1 at B = 1, K2 at
+    K = 512 and 2,048, K3 500 of 1,500) beside its plain version, its
+    library call and its bound;
+12. ``lm``: the LM family at internlm2-1.8b's and granite-moe-1b-a400m's
+    published widths, seeded weights (no kernel of the port's runs
+    here): ``LMDecodeEngine`` serving 8 requests (64-512 prompt tokens,
+    32 new) through 4 slots, max_ctx 2048, in f32 with TF32 off, each
+    request's tokens equal to the sequential ``prefill_step`` +
+    ``decode_step`` but for printed near-ties, then in bf16 (prefill
+    logits' largest error against f32, top-1 agreement); prefill ms,
+    decode tokens/s, one decode step's host and device ms and launches,
+    peak memory.  Then the launcher's ``Trainer``: internlm2-1.8b in
+    bf16, remat full, 4 x 1024, 6 AdamW steps, a checkpoint at step 3
+    and a second trainer resumed from it ending bit-equal to the
+    uninterrupted run under ``torch.use_deterministic_algorithms``, the
+    loss falling; step ms, mfu (model flops over step time x 989
+    TFLOP/s), the step split into gradients and AdamW; granite-moe 3
+    steps with a finite loss;
+13. the ``kernels`` line (launch counts from the main path's run, and
     each path's own run beside them);
-13. ``{"ok": true, "device": {...}}``, the last line.
+14. ``{"ok": true, "device": {...}}``, the last line.
 
 Any failure raises.  Rankings must equal the oracle's id for id, scores
 agree to 1e-5; a candidate pool must equal the oracle's as a set except
@@ -77,6 +95,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import gc
 import json
+import os
 import re
 import sqlite3
 import subprocess
@@ -88,6 +107,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS is deterministic only with a fixed workspace; the lm phase's
+# resumed training run must end bit-equal to the uninterrupted one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 NOW = 1_770_000_000.0
 TOL = 1e-5
@@ -1504,6 +1526,8 @@ def phase_behavioral(torch) -> dict:
                "oracle_match": True, "adjacent_swaps": swaps}
         emit(row)
         out["datasets"].append(row)
+        if name == "fiqa-like":
+            out["kernels"] = behavioral_kernels(torch, suite.cache.matrix)
         del suite
     out["launches"] = total
     out["seconds"] = time.perf_counter() - t_phase
@@ -1512,12 +1536,434 @@ def phase_behavioral(torch) -> dict:
     return out
 
 
+def behavioral_kernels(torch, matrix) -> dict:
+    """Each kernel alone on a behavioural search's inputs at one dataset's
+    size (fiqa-like, 57,638 x 128 f32): K1 at B = 1, K2 at K = 512 and
+    2,048 over its scores, K3 picking 500 of the top 1,500 rows (bucket
+    2,048); each against its plain version, its library call, and its
+    bound from the shared count (``configs/flexvec.py``)."""
+    from repro_torch.configs.flexvec import (mmr_work, pem_score_work,
+                                             topk_work)
+    from repro_torch.kernels.mmr.ops import NEG, mmr_select
+    from repro_torch.kernels.mmr.ref import mmr_ref
+    from repro_torch.kernels.pem_score.ops import pem_score
+    from repro_torch.kernels.pem_score.ref import pem_score_ref
+    from repro_torch.kernels.topk.ops import topk
+    from repro_torch.kernels.topk.ref import topk_ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m = torch.as_tensor(matrix, device=dev)
+    n, d = m.shape
+    qp = m[:1].T.contiguous()                        # a document as the query
+    qs = torch.randn(d, 1, generator=gen, device=dev) * 0.05
+    decay = 1.0 / (1.0 + torch.rand(n, generator=gen, device=dev) * 3)
+    rows = {}
+
+    def row(name, got_err, ms, plain, lib, work, **extra):
+        t, by = bound_ms(work)
+        r = {"phase": "behavioral", "kernel": name, "n": n, "d": d,
+             "max_abs_err": got_err, "ms": ms, "plain_ms": plain,
+             "library_ms": lib, "bound_ms": t, "bound_by": by, **extra}
+        emit(r)
+        rows[name if "k" not in extra else f"{name} k={extra['k']}"] = r
+
+    panel = torch.empty((1, n), device=dev)
+    got = pem_score(m, qp, qs, decay, out=panel.T)
+    want = pem_score_ref(m, qp, qs, decay)
+    err = float((got - want).abs().max())
+    if not err <= TOL:
+        raise AssertionError(f"behavioral pem_score: max error {err}")
+    qcat = torch.cat([qp, qs], dim=1)
+
+    def library(both):   # one f32 product and the epilogue
+        return decay[:, None] * both[:, :1] + both[:, 1:]
+
+    row("pem_score", err,
+        time_ms(torch, lambda: pem_score(m, qp, qs, decay, out=panel.T), 50),
+        time_ms(torch, lambda: pem_score_ref(m, qp, qs, decay), 50),
+        time_ms(torch, lambda: library(m @ qcat), 50),
+        pem_score_work(n, d, 1, 4), b=1)
+    scores = panel
+    for k in (512, 2048):
+        v, i = topk(scores, k)
+        vr, ir = topk_ref(scores, k)
+        if not (torch.equal(i, ir) and torch.equal(v, vr)):
+            raise AssertionError(f"behavioral topk k={k}: differs from plain")
+        row("topk", 0.0, time_ms(torch, lambda: topk(scores, k), 50),
+            time_ms(torch, lambda: topk_ref(scores, k), 20),
+            time_ms(torch, lambda: torch.topk(scores, k, dim=1), 50),
+            topk_work(1, n, k), k=k)
+    live, bucket, k = 1500, 2048, 500
+    _, top = topk_ref(scores, bucket)
+    e = m.index_select(0, top[0].long())[None].contiguous()
+    rel = scores[0, top[0].long()][None].contiguous()
+    rel[:, live:] = NEG
+    lam = torch.full((1,), 0.7, device=dev)
+    idx, val = mmr_select(e, rel, k, lam)
+    ir, vr = mmr_ref(e, rel, k, lam)
+    err = float((val - vr).abs().max())
+    if not (torch.equal(idx, ir) and err <= TOL):
+        raise AssertionError(f"behavioral mmr: picks differ (value error "
+                             f"{err})")
+    row("mmr", err, time_ms(torch, lambda: mmr_select(e, rel, k, lam), 10),
+        time_ms(torch, lambda: mmr_ref(e, rel, k, lam), 2), None,
+        mmr_work(1, live, k, d, bucket), live=live, bucket=bucket)
+    return rows
+
+
+# -- the LM family --------------------------------------------------------------
+
+LM_MODELS = ("internlm2-1.8b", "granite-moe-1b-a400m")
+LM_SERVE = dict(slots=4, max_ctx=2048, requests=8, prompt=(64, 512), new=32)
+LM_TRAIN = dict(batch=4, seq=1024, steps=6, ckpt_at=3, moe_steps=3)
+LM_SMOKE = False   # True: the archs' smoke configs (a CPU rehearsal)
+NEAR_TIE = 1e-4    # a top-2 logit gap below this share of the top logit
+PEAK_BF16 = 989e12  # the H100's dense bf16 rate (the mfu's denominator)
+
+
+def _lm_cfg(arch, **changes):
+    import dataclasses
+
+    return dataclasses.replace(arch.smoke_cfg if LM_SMOKE else arch.cfg,
+                               **changes)
+
+
+def _lm_rules():
+    from repro_torch.dist.sharding import default_rules
+    from repro_torch.launch.mesh import make_local_mesh
+
+    return default_rules(make_local_mesh(DEVICE))
+
+
+def _sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _step_profile(torch, fn, reps: int = 3) -> dict:
+    """One call of ``fn``: its host ms (ending in a synchronize), and on the
+    card the device ms its kernels take and its kernel launches, from
+    torch.profiler's CUDA trace: the share the card idles is 1 - device /
+    host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(torch)
+    out = {"host_ms": (time.perf_counter() - t0) / reps * 1e3}
+    if DEVICE != "cuda":
+        return out
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_time_total > 0]
+    out["device_ms"] = sum(e.device_time_total for e in evs) / reps / 1e3
+    out["launches"] = sum(e.count for e in evs) / reps
+    return out
+
+
+def _sequential(torch, T, params, cfg, rules, prompt, n_new, max_ctx):
+    """One request alone: ``prefill_step``, then ``decode_step`` at B = 1;
+    its tokens and, at each, the top-2 logit gap over the top logit."""
+    dev = params["embed"].device
+    S = len(prompt)
+    logits, cache = T.prefill_step(
+        params, torch.as_tensor(prompt[None], device=dev), cfg, rules)
+    big = T.make_cache(cfg, 1, max_ctx, device=dev)
+    for b, c in zip(big, cache):
+        b[:, :, :S] = c
+    toks, gaps, lg = [], [], logits[0]
+    for step in range(n_new + 1):
+        top2 = torch.topk(lg.float(), 2).values
+        gaps.append(float((top2[0] - top2[1]) / top2[0].abs()))
+        toks.append(int(torch.argmax(lg)))
+        if step == n_new:
+            return toks, gaps
+        lg, big = T.decode_step(params, torch.tensor([[toks[-1]]], device=dev),
+                                big, S + step, cfg, rules)
+        lg = lg[0]
+
+
+def _serve(torch, T, cfg, params, rules, prompts):
+    """The engine over the requests: their tokens and the engine's figures."""
+    from repro_torch.serve.lm_engine import DecodeRequest, LMDecodeEngine
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    eng = LMDecodeEngine(cfg, params, rules, n_slots=LM_SERVE["slots"],
+                         max_ctx=LM_SERVE["max_ctx"])
+    reqs = [DecodeRequest(prompt=p, max_new_tokens=LM_SERVE["new"])
+            for p in prompts]
+    stats = eng.run(list(reqs))
+    if not all(r.done and len(r.tokens) == LM_SERVE["new"] + 1 for r in reqs):
+        raise AssertionError(f"lm serve {cfg.name}: a request did not finish")
+    # one decode step of the full slot pool, as the engine runs it
+    dev = params["embed"].device
+    token = torch.zeros((LM_SERVE["slots"], 1), dtype=torch.int64, device=dev)
+    lens = torch.as_tensor([len(p) for p in prompts[:LM_SERVE["slots"]]],
+                           device=dev)
+    step = _step_profile(torch, lambda: T.decode_step(
+        params, token, eng.cache, lens, cfg, rules))
+    return [r.tokens for r in reqs], {
+        "requests": stats["requests"], "decode_steps": stats["decode_steps"],
+        "mean_occupancy": stats["mean_occupancy"],
+        "prefill_ms": stats["prefill_s"] / stats["requests"] * 1e3,
+        "decode_tokens_per_s": stats["decode_tokens"] / stats["decode_s"],
+        "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                    if DEVICE == "cuda" else None),
+        "decode_step": step}
+
+
+def lm_serve(torch, arch_id, seed) -> dict:
+    """(a) One model served in f32 (TF32 off) and in bf16: 8 requests of
+    64-512 prompt tokens and 32 new tokens through ``LMDecodeEngine``, 4
+    slots, max_ctx 2048, seeded weights at the published widths.  The f32
+    tokens must equal the sequential prefill + decode's, request for
+    request; a request may diverge only where the sequential run's top-2
+    logit gap lies below ``NEAR_TIE`` of its top logit, and is printed and
+    compared no further.  bf16 prints its prefill logits' largest error
+    against f32 and the top-1 agreement over every prompt position."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    arch = get_arch(arch_id)
+    cfg = _lm_cfg(arch, dtype=torch.float32)
+    rules = _lm_rules()
+    params = T.init_params(cfg, seed, device=DEVICE)
+    n_params = sum(p.numel() for p in pytree.tree_leaves(params))
+    if n_params != cfg.n_params:
+        raise AssertionError(f"lm {arch_id}: {n_params} params, config "
+                             f"{cfg.n_params}")
+    rng = np.random.default_rng(seed)
+    lo, hi = LM_SERVE["prompt"]
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(lo, hi + 1, LM_SERVE["requests"])]
+    out = {"phase": "lm", "part": "serve", "arch": arch_id,
+           "n_params": n_params, "prompt_tokens": [len(p) for p in prompts]}
+    t0 = time.perf_counter()
+
+    toks32, out["f32"] = _serve(torch, T, cfg, params, rules, prompts)
+    near_ties = []
+    for r, (p, got) in enumerate(zip(prompts, toks32)):
+        want, gaps = _sequential(torch, T, params, cfg, rules, p,
+                                 LM_SERVE["new"], LM_SERVE["max_ctx"])
+        diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                    None)
+        if diff is None:
+            continue
+        if gaps[diff] >= NEAR_TIE:
+            raise AssertionError(
+                f"lm {arch_id} f32: request {r} differs from the sequential "
+                f"decode at token {diff} (gap {gaps[diff]:.3g} of the top "
+                f"logit; engine {got[diff:diff + 4]}, sequential "
+                f"{want[diff:diff + 4]})")
+        near_ties.append({"request": r, "token": diff,
+                          "gap_over_top": gaps[diff]})
+    out["f32"]["sequential_match"] = True
+    out["f32"]["near_ties"] = near_ties
+
+    cfg16 = _lm_cfg(arch, dtype=torch.bfloat16)
+    params16 = pytree.tree_map(lambda t: t.to(torch.bfloat16), params)
+    toks16, out["bf16"] = _serve(torch, T, cfg16, params16, rules, prompts)
+    err, agree, total = 0.0, 0, 0
+    with torch.no_grad():
+        for p in prompts:
+            tok = torch.as_tensor(p[None], device=params["embed"].device)
+            l32 = T.forward(params, tok, cfg, rules)[0]
+            l16 = T.forward(params16, tok, cfg16, rules)[0].float()
+            err = max(err, float((l16 - l32).abs().max()))
+            agree += int((l16.argmax(-1) == l32.argmax(-1)).sum())
+            total += len(p)
+    out["bf16"].update(
+        prefill_logits_max_abs_err=err, top1_agreement=agree / total,
+        tokens_equal_f32=sum(a == b for a, b in zip(toks16, toks32)))
+    if not np.isfinite(err):
+        raise AssertionError(f"lm {arch_id} bf16: logits not finite")
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def _trainer(arch, rules, *, steps, ckpt_dir=None, ckpt_every=None):
+    """The launcher's trainer (``launch/train.py --full``) at LM_TRAIN's
+    batch and sequence length, seeded."""
+    from repro_torch.launch.train import build_parser, lm_trainer
+
+    argv = ["--arch", arch.arch_id, "--steps", str(steps),
+            "--batch", str(LM_TRAIN["batch"]), "--seq", str(LM_TRAIN["seq"]),
+            "--device", DEVICE]
+    if not LM_SMOKE:
+        argv.append("--full")
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(ckpt_every)]
+    return lm_trainer(arch, build_parser().parse_args(argv), rules)
+
+
+def _train_figures(torch, arch, trainer_out, cfg) -> dict:
+    hist = trainer_out["history"]
+    losses = [h["loss"] for h in hist]
+    if not (np.isfinite(losses).all() and len(losses) >= 2):
+        raise AssertionError(f"lm train {arch.arch_id}: losses {losses}")
+    # the first step builds; the rest are the steady state
+    step_s = float(np.median([h["sec_per_step"] for h in hist[1:]]))
+    flops = 6.0 * cfg.n_active_params * LM_TRAIN["batch"] * LM_TRAIN["seq"]
+    return {"losses": losses, "step_ms": step_s * 1e3,
+            "first_step_ms": hist[0]["sec_per_step"] * 1e3,
+            "model_flops": flops, "mfu": flops / (step_s * PEAK_BF16)}
+
+
+def _train_split(torch, trainer, cfg, rules) -> dict:
+    """One more step of ``trainer`` timed in its two parts: the loss and
+    its gradients (forward, remat, backward), then the AdamW update."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             loss_and_grads)
+
+    batch = trainer.to_batch(trainer.stream.next_batch())
+    grads = {}
+
+    def fwd_bwd():
+        grads["g"] = loss_and_grads(
+            lambda p, b: T.lm_loss(p, b, cfg, rules), trainer.params,
+            batch)[1]
+
+    out = {"loss_and_grads": _step_profile(torch, fwd_bwd, reps=1)}
+    out["adamw"] = _step_profile(torch, lambda: adamw_update(
+        AdamWConfig(), trainer.params, grads["g"], trainer.opt_state),
+        reps=1)
+    return out
+
+
+def lm_train(torch, seed) -> dict:
+    """(b) internlm2-1.8b at its published widths in bf16 (remat full),
+    batch 4 x seq 1024, 6 AdamW steps through the launcher's Trainer: the
+    loss finite and falling; a run stopped after step 3's checkpoint and a
+    second trainer resumed from it must end with the uninterrupted run's
+    params bit for bit, under ``torch.use_deterministic_algorithms``.
+    granite-moe-1b-a400m then takes 3 steps with a finite loss."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train.checkpoint import latest_step
+
+    rules = _lm_rules()
+    arch = get_arch(LM_MODELS[0])
+    cfg = _lm_cfg(arch)
+    steps, at = LM_TRAIN["steps"], LM_TRAIN["ckpt_at"]
+    out = {"phase": "lm", "part": "train", "arch": arch.arch_id,
+           "dtype": str(cfg.dtype).split(".")[-1], "remat": cfg.remat,
+           "remat_policy": cfg.remat_policy, "batch": LM_TRAIN["batch"],
+           "seq": LM_TRAIN["seq"], "steps": steps}
+    t_phase = time.perf_counter()
+    ckpt = Path(tempfile.mkdtemp(prefix="lm_ckpt_"))
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out["disk_free_gb"] = shutil.disk_usage(ckpt).free / 1e9
+        first = _trainer(arch, rules, steps=steps, ckpt_dir=ckpt,
+                         ckpt_every=at)
+        t0 = time.perf_counter()
+        head = first.run(at)                  # stops after step 3's save
+        out["run_to_checkpoint_s"] = time.perf_counter() - t0
+        if latest_step(ckpt) != at:
+            raise AssertionError(f"lm train: latest checkpoint "
+                                 f"{latest_step(ckpt)}, not {at}")
+        out["checkpoint_gb"] = sum(f.stat().st_size
+                                   for f in ckpt.glob("*.npz")) / 1e9
+        del first
+        gc.collect()
+        resumed = _trainer(arch, rules, steps=steps, ckpt_dir=ckpt,
+                           ckpt_every=at)
+        t0 = time.perf_counter()
+        if not resumed.try_resume() or resumed.step != at:
+            raise AssertionError("lm train: no resume from step 3")
+        out["restore_s"] = time.perf_counter() - t0
+        # the resumed run writes no checkpoint of its own: a second 18.9 GB
+        # save that nothing reads
+        resumed.cfg = dataclasses.replace(resumed.cfg, ckpt_dir=None)
+        tail = resumed.run()
+        end = pytree.tree_leaves(resumed.params)
+        del resumed
+        gc.collect()
+        whole = _trainer(arch, rules, steps=steps)
+        full = whole.run()
+        same = [torch.equal(a, b) for a, b in
+                zip(pytree.tree_leaves(whole.params), end)]
+        if not all(same):
+            raise AssertionError(f"lm train: the resumed run differs from "
+                                 f"the uninterrupted one in "
+                                 f"{same.count(False)} of {len(same)} params")
+        out["resume_bit_equal"] = True
+        out["resumed_losses"] = [h["loss"] for h in head["history"]
+                                 + tail["history"]]
+        if out["resumed_losses"] != [h["loss"] for h in full["history"]]:
+            raise AssertionError("lm train: resumed losses differ")
+        out["step_split"] = _train_split(torch, whole, cfg, rules)
+        del whole, end
+    finally:
+        torch.use_deterministic_algorithms(det)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out.update(_train_figures(torch, arch, full, cfg))
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"lm train: the loss did not fall "
+                             f"{out['losses']}")
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    moe = get_arch(LM_MODELS[1])
+    moe_run = _trainer(moe, rules, steps=LM_TRAIN["moe_steps"])
+    out["moe"] = {"arch": moe.arch_id,
+                  **_train_figures(torch, moe, moe_run.run(), _lm_cfg(moe)),
+                  "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                              if DEVICE == "cuda" else None)}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def phase_lm(torch, seed: int) -> dict:
+    """The LM family on the card at two models' published widths: the
+    decode engine for each (``lm_serve``), then the trainer
+    (``lm_train``)."""
+    t0 = time.perf_counter()
+    out = {"serve": {}}
+    _reset_counts()
+    for arch_id in LM_MODELS:
+        out["serve"][arch_id] = lm_serve(torch, arch_id, seed)
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    out["train"] = lm_train(torch, seed)
+    # the LM path runs none of the port's kernels: its products are the
+    # library's, as the reference's are plain jnp
+    out["launches"] = _counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"lm: kernel launches {out['launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "lm", "launches": out["launches"],
+          "seconds": out["seconds"]})
+    return out
+
+
 def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the flexvec_arch phase's inputs")
+                    help="seed of the flexvec_arch phase's inputs and of "
+                         "the lm phase's weights and requests")
     cli = ap.parse_args()
     import torch
 
@@ -1547,7 +1993,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     paths["flexvec_arch"] = phase_flexvec_arch(torch, cli.seed)["launches"]
-    paths["behavioral"] = phase_behavioral(torch)["launches"]
+    behavioral = phase_behavioral(torch)
+    paths["behavioral"] = behavioral["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["lm"] = phase_lm(torch, cli.seed)["launches"]
 
     counts = main_path["launches"]
     picks = [

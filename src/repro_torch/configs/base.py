@@ -93,6 +93,11 @@ class ArchSpec(abc.ABC):
         collectives' bytes and the intermediates' bytes.  The port has no
         compiler to count them; the dry run's roofline reads this."""
 
+    def cost_corrections(self, shape: str, chips: int) -> Tuple[float, float]:
+        """Work the reference adds to XLA's count by hand (flops, bytes a
+        device); none unless an architecture says so."""
+        return 0.0, 0.0
+
     def model_flops(self, shape: str) -> Optional[float]:
         """Analytic useful-work FLOPs for the cell (6ND convention for LM
         training, 2ND for forward-only; analytic op counts elsewhere).

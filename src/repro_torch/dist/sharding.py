@@ -24,8 +24,10 @@ Vocabulary (every logical axis any spec in the tree may name):
     candidates, table_rows   — recsys corpus / embedding tables
     corpus                   — flexvec retrieval row sharding
 
-``constrain`` (the reference's ``with_sharding_constraint`` by logical
-names) is used only by the LM, GNN and recsys models and waits for them.
+``constrain`` is the reference's ``with_sharding_constraint`` by logical
+names.  The reference runs its LM on a 1x1 mesh only (the trainer, the
+decode engine) and only lowers it on the production meshes, so the port's
+``constrain`` checks the names and places nothing.
 """
 
 from __future__ import annotations
@@ -149,6 +151,16 @@ class ShardingRules:
                 f"{name!r} maps to mesh axes {axes}: the port shards it over "
                 f"the process group of exactly one of them")
         return self.mesh.get_group(wide[0])
+
+
+def constrain(x: Any, rules: ShardingRules, *names: Optional[str]) -> Any:
+    """The reference's logical-name sharding constraint: every name must be
+    one of the rules' logical axes (an unknown one raises ``KeyError``, as
+    :meth:`ShardingRules.spec` does), and ``x`` comes back unchanged.  The
+    port's LM runs on one device, and the dry run counts its collectives
+    from the rules (``configs/lm.py``), not from constraints."""
+    rules.spec(*names)
+    return x
 
 
 def default_rules(mesh: Any) -> ShardingRules:

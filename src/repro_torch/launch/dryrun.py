@@ -15,6 +15,7 @@ H100's figures (``roofline/analysis.py``).
 Usage:
     python -m repro_torch.launch.dryrun --arch flexvec --shape corpus_1m
     python -m repro_torch.launch.dryrun --arch flexvec --shape corpus_67m --multi-pod
+    python -m repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k
     python -m repro_torch.launch.dryrun --all      # every cell, both meshes
 
 A single cell prints its report (and writes it to ``--out`` when given);
@@ -105,13 +106,22 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool,
 
 
 def cell_list():
-    """(arch, shape) of every cell to run: flexvec's, whose cells all lie
-    beyond the assignment, until the assigned architectures are ported."""
-    from repro_torch.configs import get_arch
+    """(arch, shape) of every cell to run, by the reference's rule: the
+    assigned cells of each ported architecture first, then those beyond
+    the assignment (flexvec's, and a cell skipped per assignment that is
+    run beyond it, as the LM archs' long_500k decode).  The GNN and recsys
+    architectures wait for ROADMAP Queue 1 item 5."""
+    from repro_torch.configs import ASSIGNED, REGISTRY
 
-    return [("flexvec", shape)
-            for shape, cell in get_arch("flexvec").cells().items()
-            if not cell.skip_reason or cell.beyond_assignment]
+    assigned, beyond = [], []
+    for aid in [a for a in ASSIGNED if a in REGISTRY] + ["flexvec"]:
+        for shape, cell in REGISTRY[aid].cells().items():
+            if cell.beyond_assignment or cell.skip_reason or aid == "flexvec":
+                if not cell.skip_reason or cell.beyond_assignment:
+                    beyond.append((aid, shape))
+                continue
+            assigned.append((aid, shape))
+    return assigned + beyond
 
 
 def drive_all(rules_name: str = "default",

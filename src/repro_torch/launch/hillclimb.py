@@ -1,10 +1,11 @@
-"""Perf hillclimb: the flexvec iterations, each one dry-run cell.
+"""Perf hillclimb: the reference's iterations, each one dry-run cell.
 
-The port of ``repro.launch.hillclimb``'s flexvec part.  Each iteration is
-one call of :func:`repro_torch.launch.dryrun.run_cell` with a
-:class:`~repro_torch.configs.flexvec.FlexvecArch` variant over the
-abstract production mesh: the step runs on the meta device and is counted
-at the H100's figures, so no card is needed.
+The port of ``repro.launch.hillclimb``.  Each iteration is one call of
+:func:`repro_torch.launch.dryrun.run_cell` with a variant of a
+:class:`~repro_torch.configs.flexvec.FlexvecArch` or an
+:class:`~repro_torch.configs.lm.LMArch` over the abstract production
+mesh: the step runs on the meta device and is counted at the H100's
+figures, so no card is needed.
 
     python -m repro_torch.launch.hillclimb [iteration ...]   # default: all
 
@@ -16,6 +17,10 @@ Iterations (the reference's names and knobs):
     flexvec-6   + mmr_shards = 16   (the MMR batch split over 'batch')
     flexvec-67m, flexvec-67m-multipod
                 everything above on the 67M-chunk corpus, one pod / two
+    qwen3-1     serve_weights rules (EP x TP resident weights for decode)
+    qwen3-2     + decode_group = 8  (MoE slots shrink 8x at decode)
+    granite-1   remat_policy = dots (stop recomputing the projections)
+    granite-2   remat off           (the flops floor; memory counted)
 
 In the port ``mmr_vmem`` changes only ``cost_corrections``
 (``configs/flexvec.py``, ``FlexvecArch.cost_corrections``): it counts the
@@ -23,9 +28,7 @@ pool as read once instead of every step, and changes no kernel, since K3
 keeps the pool in its cluster's shared memory either way.  ``corpus_all``
 maps the corpus over both mesh axes, which the abstract meshes take; a
 ``DeviceMesh`` with both axes above 1 refuses it (``dist/sharding.py``),
-so the hillclimb runs on abstract meshes only.  The ``qwen3-*`` and
-``granite-*`` iterations wait for ROADMAP Queue 1 item 4 and raise
-``KeyError``.
+so the hillclimb runs on abstract meshes only.
 
 Each iteration writes ``reports/perf/torch/<name>.json`` in the dry run's
 schema and prints the reference's one-line summary.
@@ -33,10 +36,11 @@ schema and prints the reference's one-line summary.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -57,18 +61,34 @@ ITERATIONS: Dict[str, Tuple[str, bool, dict, int]] = {
 }
 RULES = "corpus_all"
 
+# name -> (arch, shape, rules, LMConfig changes); single-pod mesh
+LM_ITERATIONS: Dict[str, Tuple[str, str, str, Callable]] = {
+    "qwen3-1": ("qwen3-moe-235b-a22b", "decode_32k", "serve_weights",
+                lambda cfg: cfg),
+    "qwen3-2": ("qwen3-moe-235b-a22b", "decode_32k", "serve_weights",
+                lambda cfg: dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, decode_group=8))),
+    "granite-1": ("granite-34b", "train_4k", "default",
+                  lambda cfg: dataclasses.replace(cfg, remat_policy="dots")),
+    "granite-2": ("granite-34b", "train_4k", "default",
+                  lambda cfg: dataclasses.replace(cfg, remat=False)),
+}
+
 
 def arch_for(name: str):
-    """The :class:`FlexvecArch` variant of iteration ``name``."""
+    """The architecture variant of iteration ``name``."""
+    if name in LM_ITERATIONS:
+        from repro_torch.configs import get_arch
+        from repro_torch.configs.lm import LMArch
+
+        arch_id, _, _, change = LM_ITERATIONS[name]
+        base = get_arch(arch_id)
+        return LMArch(arch_id, base.source, change(base.cfg), base.smoke_cfg)
     from repro_torch.configs.flexvec import FlexvecArch
 
     if name not in ITERATIONS:
-        if name.startswith(("qwen3-", "granite-")):
-            raise KeyError(f"hillclimb iteration {name!r} is not ported yet: "
-                           f"the LM iterations wait for ROADMAP Queue 1 "
-                           f"item 4")
         raise KeyError(f"unknown hillclimb iteration {name!r}; known: "
-                       f"{sorted(ITERATIONS)}")
+                       f"{sorted(ITERATIONS) + sorted(LM_ITERATIONS)}")
     _, _, knobs, mmr_shards = ITERATIONS[name]
     arch = FlexvecArch(**knobs)
     arch.mmr_shards = mmr_shards
@@ -81,8 +101,12 @@ def run_iteration(name: str) -> dict:
     from repro_torch.launch.dryrun import run_cell
 
     arch = arch_for(name)
-    shape, multi_pod, _, _ = ITERATIONS[name]
-    out = run_cell("flexvec", shape, multi_pod, RULES, arch_obj=arch)
+    if name in LM_ITERATIONS:
+        arch_id, shape, rules, _ = LM_ITERATIONS[name]
+        out = run_cell(arch_id, shape, False, rules, arch_obj=arch)
+    else:
+        shape, multi_pod, _, _ = ITERATIONS[name]
+        out = run_cell("flexvec", shape, multi_pod, RULES, arch_obj=arch)
     PERF_DIR.mkdir(parents=True, exist_ok=True)
     (PERF_DIR / f"{name}.json").write_text(
         json.dumps(out, indent=2, default=str))
@@ -95,7 +119,7 @@ def run_iteration(name: str) -> dict:
 
 
 def main() -> None:
-    for name in sys.argv[1:] or list(ITERATIONS):
+    for name in sys.argv[1:] or list(ITERATIONS) + list(LM_ITERATIONS):
         run_iteration(name)
 
 

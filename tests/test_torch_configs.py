@@ -15,6 +15,7 @@ for every cell and variant (the reference's rules built over
 ``jax.sharding.AbstractMesh``, which needs no devices).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -31,10 +32,13 @@ import jax.numpy as jnp  # noqa: E402
 from jax.sharding import AbstractMesh as JaxAbstractMesh  # noqa: E402
 
 from repro.configs import ASSIGNED as R_ASSIGNED  # noqa: E402
+from repro.configs import get_arch as R_get_arch  # noqa: E402
 from repro.configs import flexvec as RF  # noqa: E402
 from repro.dist import tuned as RT  # noqa: E402
 from repro_torch import configs as TC  # noqa: E402
 from repro_torch.configs import flexvec as TF  # noqa: E402
+from repro_torch.configs import lm as TL  # noqa: E402
+from repro_torch.models import transformer as TT_model  # noqa: E402
 from repro_torch.dist import tuned as TT  # noqa: E402
 from repro_torch.dist.sharding import AbstractMesh  # noqa: E402
 from repro_torch.kernels.mmr.ops import mmr_select  # noqa: E402
@@ -49,6 +53,8 @@ from repro_torch.roofline.analysis import (HW, KernelWork,  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
 BF16_TOL = 2e-2
+LM_IDS = ["granite-34b", "minitron-4b", "internlm2-1.8b",
+          "granite-moe-1b-a400m", "qwen3-moe-235b-a22b"]
 SIZES = {"n512": dict(n=512, b=2, over=24, pool=8),
          "n4096": dict(n=4096, b=8, over=64, pool=16)}
 
@@ -313,10 +319,17 @@ def test_local_mesh_is_the_card_unless_the_cpu_is_asked():
 
 def test_registry_holds_flexvec_and_names_the_unported():
     assert TC.ASSIGNED == R_ASSIGNED and len(TC.ASSIGNED) == 10
-    assert set(TC.REGISTRY) == {"flexvec"}
+    assert set(TC.REGISTRY) == {"flexvec"} | set(LM_IDS)
     assert isinstance(TC.get_arch("flexvec"), TF.FlexvecArch)
-    for aid in TC.ASSIGNED:
-        with pytest.raises(KeyError, match="Queue 1 item 4"):
+    for aid in LM_IDS:
+        arch, ref = TC.get_arch(aid), R_get_arch(aid)
+        assert isinstance(arch, TL.LMArch) and arch.family == "lm"
+        assert {n: dataclasses.asdict(c) for n, c in arch.cells().items()} \
+            == {n: dataclasses.asdict(c) for n, c in ref.cells().items()}
+        for shape in arch.cells():
+            assert arch.model_flops(shape) == ref.model_flops(shape)
+    for aid in set(TC.ASSIGNED) - set(LM_IDS):
+        with pytest.raises(KeyError, match="Queue 1 item 5"):
             TC.get_arch(aid)
     with pytest.raises(KeyError, match="unknown arch"):
         TC.get_arch("nope")
@@ -424,19 +437,68 @@ def test_dryrun_cli_runs_without_a_card():
         "compute", "memory", "collective")
 
 
-def test_drive_all_and_the_report_tables(tmp_path):
+def test_drive_all_and_the_report_tables(tmp_path, monkeypatch):
     from repro_torch.roofline.report import (collective_mix_table,
                                              dryrun_table, load_cells,
                                              roofline_table)
 
+    # the reference's rule: each ported arch's assigned cells, then the
+    # cells beyond the assignment (long_500k, skipped per assignment but
+    # run; flexvec's)
+    assert dryrun.cell_list() == (
+        [(a, s) for a in LM_IDS
+         for s in ("train_4k", "prefill_32k", "decode_32k")]
+        + [(a, "long_500k") for a in LM_IDS]
+        + [("flexvec", s) for s in TF.SHAPES])
+    # the sweep's mechanics over flexvec's cells and one LM decode cell
+    # (every LM cell runs in test_lm_cells_run_on_both_meshes)
+    cells_run = [("internlm2-1.8b", "decode_32k")] + [
+        ("flexvec", s) for s in TF.SHAPES]
+    monkeypatch.setattr(dryrun, "cell_list", lambda: cells_run)
     dryrun.drive_all(report_dir=tmp_path)
     files = sorted(p.name for p in tmp_path.glob("*.json"))
-    assert files == sorted(f"flexvec__{s}__{m}.json" for s in TF.SHAPES
+    assert files == sorted(f"{a}__{s}__{m}.json" for a, s in cells_run
                            for m in ("16x16", "2x16x16"))
     cells = load_cells(tmp_path)
-    assert len(cells) == 6 and not any("error" in c for c in cells)
-    assert dryrun.cell_list() == [("flexvec", s) for s in TF.SHAPES]
+    assert len(cells) == 8 and not any("error" in c for c in cells)
     table = roofline_table(cells)
     assert table.count("| flexvec |") == 3 and "**collective**" in table
+    assert table.count("| internlm2-1.8b |") == 1
     assert dryrun_table(cells).count("| flexvec |") == 6
     assert collective_mix_table(cells).count("| flexvec |") == 6
+
+
+@pytest.mark.parametrize("arch_id", LM_IDS)
+def test_lm_cells_run_on_both_meshes(arch_id):
+    """Every cell of the arch, on 16x16 and 2x16x16, at its published
+    widths and two layers (the meta run's time grows with the depth; the
+    count is the step's, layer for layer).  Each step runs on meta tensors
+    of the global shapes; its outputs are what the step returns."""
+    base = TC.get_arch(arch_id)
+    arch = TL.LMArch(arch_id, base.source,
+                     dataclasses.replace(base.cfg, n_layers=2), base.smoke_cfg)
+    cfg = arch.cfg
+    n_leaves = 3 + len(TT_model.param_shapes(cfg)["layers"])
+    for shape, cell in arch.cells().items():
+        s = TL.LM_SHAPES[shape]
+        for multi_pod in (False, True):
+            out = dryrun.run_cell(arch_id, shape, multi_pod, arch_obj=arch)
+            rules = TT.get_rules("default",
+                                 make_production_mesh(multi_pod=multi_pod))
+            cost = arch.step_cost(shape, rules)
+            chips = 512 if multi_pod else 256
+            assert out["hlo_flops"] == cost.flops * chips > 0
+            assert out["collective_bytes"] == cost.collective_bytes * chips
+            assert out["skip_reason"] == cell.skip_reason
+            assert out["beyond_assignment"] == (shape == "long_500k")
+            kv = [2, s["batch"], s["seq"], cfg.n_kv_heads, cfg.head_dim]
+            if s["kind"] == "train":
+                assert out["outputs"][-2:] == [[], []]     # loss, grad norm
+                assert len(out["outputs"]) == 3 * n_leaves + 2
+                assert {"adamw", "loss", "attention"} <= set(out["kernels"])
+                assert "reduce-scatter" in out["collective_by_op"]
+            elif s["kind"] == "prefill":
+                assert out["outputs"] == [[s["batch"], cfg.vocab], kv, kv]
+            else:
+                assert out["outputs"] == [[s["batch"], cfg.vocab], kv, kv]
+            assert ("moe" in out["kernels"]) == (cfg.moe is not None)

@@ -14,9 +14,15 @@ agree exactly.  Imports no JAX.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
+
+# cuBLAS is deterministic only with a fixed workspace, read when its first
+# handle is made: set before any test runs a product (the trainer's
+# resume test runs under torch.use_deterministic_algorithms)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 torch = pytest.importorskip("torch")
 
@@ -644,6 +650,90 @@ def test_bf16_worker_views_the_codes_on_the_card(cuda):
     rounded = torch.from_numpy(mat).to(torch.bfloat16)
     assert not torch.equal(rounded.view(torch.int16).cuda(),
                            dev.view(torch.int16))
+
+
+# -- the LM family on the card -------------------------------------------------
+
+
+@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "granite-moe-1b-a400m"])
+def test_lm_engine_equals_sequential_decode_on_the_card(cuda, arch_id):
+    """The continuous-batching engine (six requests, three slots) against
+    one-request prefill + decode on the card, smoke config, f32 with TF32
+    off: token ids equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import AbstractMesh, default_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.lm_engine import DecodeRequest, LMDecodeEngine
+
+    cfg = get_arch(arch_id).smoke_cfg
+    rules = default_rules(AbstractMesh((1, 1), ("data", "model")))
+    params = T.init_params(cfg, 0)
+    assert params["embed"].device.type == "cuda"
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(3, 9, 6)]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        eng = LMDecodeEngine(cfg, params, rules, n_slots=3, max_ctx=48)
+        reqs = [DecodeRequest(prompt=p, max_new_tokens=6) for p in prompts]
+        eng.run(list(reqs))
+        for p, r in zip(prompts, reqs):
+            logits, cache = T.prefill_step(
+                params, torch.from_numpy(p)[None].to(cuda), cfg, rules)
+            big = T.make_cache(cfg, 1, 48)
+            for b, c in zip(big, cache):
+                b[:, :, :len(p)] = c
+            toks = [int(torch.argmax(logits[0]))]
+            for ln in range(len(p), len(p) + 6):
+                lg, big = T.decode_step(
+                    params, torch.tensor([[toks[-1]]], device=cuda), big, ln,
+                    cfg, rules)
+                toks.append(int(torch.argmax(lg[0])))
+            assert r.tokens == toks
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_lm_trainer_on_the_card_resumes_bit_for_bit(cuda, tmp_path):
+    """The launcher's trainer at smoke size on the card: the loss falls
+    over 8 steps, and a run resumed from step 4's checkpoint ends with
+    the uninterrupted run's params bit for bit (deterministic algorithms;
+    CUBLAS_WORKSPACE_CONFIG set when the module loads)."""
+    import argparse
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import AbstractMesh, default_rules
+    from repro_torch.launch.train import build_parser, lm_trainer
+
+    arch = get_arch("internlm2-1.8b")
+    rules = default_rules(AbstractMesh((1, 1), ("data", "model")))
+
+    def trainer(ckpt_dir=None):
+        argv = ["--arch", arch.arch_id, "--steps", "8", "--batch", "4",
+                "--seq", "32", "--ckpt-every", "4"]
+        args = build_parser().parse_args(argv + (
+            ["--ckpt-dir", str(ckpt_dir)] if ckpt_dir else []))
+        assert isinstance(args, argparse.Namespace) and args.device == "cuda"
+        return lm_trainer(arch, args, rules)
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        whole = trainer()
+        hist = whole.run()["history"]
+        assert np.isfinite([h["loss"] for h in hist]).all()
+        assert hist[-1]["loss"] < hist[0]["loss"]
+        first = trainer(tmp_path)
+        first.run(4)
+        again = trainer(tmp_path)
+        assert again.try_resume() and again.step == 4
+        again.run()
+    finally:
+        torch.use_deterministic_algorithms(det)
+    for name, w in whole.params["layers"].items():
+        assert torch.equal(w, again.params["layers"][name]), name
+    assert torch.equal(whole.params["embed"], again.params["embed"])
 
 
 # -- four cards: one shard a card (skip on fewer) -----------------------------

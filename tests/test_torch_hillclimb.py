@@ -1,4 +1,4 @@
-"""The port's flexvec hillclimb iterations against the reference's
+"""The port's hillclimb iterations against the reference's
 arithmetic, on the CPU with no card and no JAX compile.
 
 Each of the seven flexvec iterations runs the port's dry run
@@ -7,11 +7,14 @@ the dry run's schema.  Its cell, its sharding rules and its
 ``cost_corrections`` must equal the reference's ``FlexvecArch`` built
 with the same knobs (``src/repro/launch/hillclimb.py``, mirrored in
 ``REFERENCE_KNOBS``) and the reference's rules over
-``jax.sharding.AbstractMesh``, which needs no devices.  The reference's
-hillclimb module itself is not imported: it forces 512 host devices on
-import.
+``jax.sharding.AbstractMesh``, which needs no devices.  The four LM
+iterations (qwen3-1/-2, granite-1/-2) write their reports with the
+reference's configs and knobs, and each moves its count the way its knob
+should.  The reference's hillclimb module itself is not imported: it
+forces 512 host devices on import.
 """
 
+import dataclasses
 import json
 
 import pytest
@@ -96,12 +99,64 @@ def test_main_writes_every_report(tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().out.count("bottleneck=") == 2
 
 
+# src/repro/launch/hillclimb.py: (arch, shape, rules, LMConfig changes),
+# and the count each knob should move: (iteration or default cell it is
+# compared with, what is counted)
+REFERENCE_LM_KNOBS = {
+    "qwen3-1": ("qwen3-moe-235b-a22b", "decode_32k", "serve_weights", {}),
+    "qwen3-2": ("qwen3-moe-235b-a22b", "decode_32k", "serve_weights",
+                {"decode_group": 8}),
+    "granite-1": ("granite-34b", "train_4k", "default",
+                  {"remat_policy": "dots"}),
+    "granite-2": ("granite-34b", "train_4k", "default", {"remat": False}),
+}
+LOWER_THAN = {"qwen3-1": ("default", "collective_bytes"),
+              "qwen3-2": ("qwen3-1", "moe_flops"),
+              "granite-1": ("default", "flops"),
+              "granite-2": ("granite-1", "flops")}
+
+
+def _count(arch, shape, rules_name, what):
+    cost = arch.step_cost(shape, TT.get_rules(rules_name,
+                                              make_production_mesh()))
+    return {"collective_bytes": cost.collective_bytes, "flops": cost.flops,
+            "moe_flops": cost.kernels.get("moe") and cost.kernels["moe"].flops
+            }[what]
+
+
 @pytest.mark.parametrize("name", ["qwen3-1", "qwen3-2", "granite-1",
                                   "granite-2"])
-def test_lm_iterations_wait_for_queue_1_item_4(name, tmp_path, monkeypatch):
+def test_lm_iteration_writes_its_report_and_moves_its_count(name, tmp_path,
+                                                           monkeypatch):
+    from repro.configs import get_arch as R_get_arch
+    from repro_torch.configs import get_arch
+
+    arch_id, shape, rules_name, changes = REFERENCE_LM_KNOBS[name]
     monkeypatch.setattr(hillclimb, "PERF_DIR", tmp_path)
-    with pytest.raises(KeyError, match="Queue 1 item 4"):
-        hillclimb.run_iteration(name)
-    assert not list(tmp_path.iterdir())
+    out = hillclimb.run_iteration(name)
+    written = json.loads((tmp_path / f"{name}.json").read_text())
+    assert (written["arch"], written["shape"], written["rules"],
+            written["mesh"]) == (arch_id, shape, rules_name, "16x16")
+    assert written["hlo_flops"] == out["hlo_flops"] > 0
+
+    port = hillclimb.arch_for(name)
+    ref_cfg = R_get_arch(arch_id).cfg
+    ref_moe = ref_cfg.moe and dataclasses.replace(
+        ref_cfg.moe, **{k: v for k, v in changes.items() if k == "decode_group"})
+    ref_cfg = dataclasses.replace(
+        ref_cfg, moe=ref_moe,
+        **{k: v for k, v in changes.items() if k != "decode_group"})
+    for field in ("n_layers", "d_model", "remat", "remat_policy"):
+        assert getattr(port.cfg, field) == getattr(ref_cfg, field), field
+    if ref_moe is not None:
+        assert port.cfg.moe.decode_group == ref_moe.decode_group
+    assert written["model_flops"] == R_get_arch(arch_id).model_flops(shape)
+
+    base, what = LOWER_THAN[name]
+    other = get_arch(arch_id) if base == "default" else hillclimb.arch_for(base)
+    other_rules = "default" if base == "default" else \
+        REFERENCE_LM_KNOBS[base][2]
+    assert _count(port, shape, rules_name, what) < \
+        _count(other, shape, other_rules, what)
     with pytest.raises(KeyError, match="unknown hillclimb iteration"):
         hillclimb.run_iteration("flexvec-5")

@@ -45,7 +45,12 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.launch.dryrun", "repro_torch.metrics",
             "repro_torch.metrics.ranking", "repro_torch.data.beir",
             "repro_torch.bench.behavioral",
-            "repro_torch.launch.hillclimb"} <= set(mods)
+            "repro_torch.launch.hillclimb", "repro_torch.models.layers",
+            "repro_torch.models.transformer", "repro_torch.train.optimizer",
+            "repro_torch.train.loop", "repro_torch.train.checkpoint",
+            "repro_torch.train.elastic", "repro_torch.data.loader",
+            "repro_torch.serve.lm_engine", "repro_torch.configs.lm",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -113,9 +118,27 @@ def test_entry_points_default_to_the_card():
     svc = RetrievalService(conn, dim=8, engine="fused-numpy")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         svc.shard_group(2)
+    # the LM: params, caches and the engine (on its params' device)
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.lm_engine import LMDecodeEngine
+
+    cfg = get_arch("internlm2-1.8b").smoke_cfg
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.make_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.params_from_numpy({"embed": np.zeros((2, 2), np.float32)}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMDecodeEngine(cfg, T.init_params(cfg), None)
+    engine = LMDecodeEngine(cfg, T.init_params(cfg, device="cpu"), None)
+    assert engine.cache[0].device.type == "cpu"
     for cli in (["repro_torch.launch.serve", "--chunks", "50"],
                 ["repro_torch.bench.behavioral", "--datasets",
-                 "nfcorpus-like"]):
+                 "nfcorpus-like"],
+                ["repro_torch.launch.train", "--arch", "internlm2-1.8b",
+                 "--steps", "1"]):
         out = subprocess.run(
             [sys.executable, "-m", *cli],
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
