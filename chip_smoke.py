@@ -81,9 +81,25 @@ reference package.  Prints one JSON object per line, in order:
     loss falling; step ms, mfu (model flops over step time x 989
     TFLOP/s), the step split into gradients and AdamW; granite-moe 3
     steps with a finite loss;
-13. the ``kernels`` line (launch counts from the main path's run, and
+13. ``recsys_gnn``: the GNN and recsys families at their published
+    widths, weights and data seeded from ``--seed``.  two-tower-retrieval
+    (12.9 GB of f32 tables): ``retrieval_cand`` through the arch's spec
+    (the user tower, K1 over the item tower's 1,000,000 x 256 vectors with
+    decay:30, K2 for 1,500, the pool's rows, K3 for 500), one K1, six K2
+    and one K3 launch, held against ``pem_serve_step_plain`` (ids equal but
+    for adjacent near-tie swaps, counted and printed; scores within 1e-5),
+    then each kernel alone on its inputs beside its plain version, library
+    call and bound; ``serve_p99`` (the user tower at 512 within 1e-4 of
+    f64); 3 AdamW steps at batch 16,384 (train_batch's 65,536 cut: the
+    in-batch logits grow as B^2) on the full tables.  bst and autoint:
+    serve_p99 and serve_bulk forwards within 1e-4 of f64, 3 steps at
+    65,536.  PNA: minibatch_lg (Reddit-scale source graph and its CSR on
+    the host, 5 steps each on a fresh 1,024-seed subgraph at fanout
+    15-10), full_graph_sm and molecule, 5 steps each, forwards against
+    f64.  Every loss finite and falling; step ms and peak GB;
+14. the ``kernels`` line (launch counts from the main path's run, and
     each path's own run beside them);
-14. ``{"ok": true, "device": {...}}``, the last line.
+15. ``{"ok": true, "device": {...}}``, the last line.
 
 Any failure raises.  Rankings must equal the oracle's id for id, scores
 agree to 1e-5; a candidate pool must equal the oracle's as a set except
@@ -1957,13 +1973,407 @@ def phase_lm(torch, seed: int) -> dict:
     return out
 
 
+# -- the GNN and recsys families ------------------------------------------------
+
+RECSYS_SMOKE = False  # True: the archs' smoke configs and small graphs (a
+#                       CPU rehearsal)
+RECSYS_TRAIN = dict(two_tower_batch=16_384, steps=3, pna_steps=5, lr=1e-4)
+# minibatch_lg's source graph: Reddit's nodes, edges, features and classes
+PNA_SOURCE = dict(n=232_965, e=114_615_892, d_feat=602, n_classes=41)
+F64_RTOL = 1e-4   # a forward against the same function in f64, relative
+
+
+def _family_arch(arch_id):
+    """The registered arch, or (RECSYS_SMOKE) a copy at its smoke config."""
+    import copy
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(arch_id)
+    if RECSYS_SMOKE and hasattr(arch, "smoke_cfg"):
+        arch = copy.copy(arch)
+        arch.cfg = arch.smoke_cfg
+    return arch
+
+
+def _reset_peak(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(torch):
+    return torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" \
+        else None
+
+
+def _free(torch) -> None:
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|, ``want`` in f64."""
+    return float((got.double() - want).abs().max()
+                 / want.abs().max().clamp(min=1e-300))
+
+
+def _check_f64(name, got, want, slack: float = 0.0) -> float:
+    """``got``'s relative error from ``want`` (the same function in f64),
+    which must be at most F64_RTOL + ``slack``."""
+    err = _rel_err(got, want)
+    if not err <= F64_RTOL + slack:
+        raise AssertionError(f"{name}: {err} from f64, above {F64_RTOL} + "
+                             f"{slack}")
+    return err
+
+
+def _spec_args(spec, rules, args, name) -> tuple:
+    """``args`` checked against the shapes and dtypes the spec takes."""
+    for a, t in zip(spec.call_args(rules), args):
+        if tuple(a.shape) != tuple(t.shape) or a.dtype != t.dtype:
+            raise AssertionError(f"{name}: the spec takes {tuple(a.shape)} "
+                                 f"{a.dtype}, given {tuple(t.shape)} "
+                                 f"{t.dtype}")
+    return tuple(args)
+
+
+def _train(torch, loss_fn, params, next_batch, steps) -> dict:
+    """``steps`` AdamW steps (lr RECSYS_TRAIN["lr"], one warmup step) of
+    the arch's train step, a batch from ``next_batch(i)`` each: the losses
+    (finite and falling, last below first), each step's ms and its
+    batch's, peak GB."""
+    from repro_torch.configs.base import train_step_fn
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    step = train_step_fn(loss_fn, AdamWConfig(
+        lr=RECSYS_TRAIN["lr"], warmup_steps=1, total_steps=steps))
+    opt = init_opt_state(params)
+    _sync(torch)
+    _reset_peak(torch)
+    out = {"losses": [], "step_ms": [], "batch_ms": []}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        batch = next_batch(i)
+        _sync(torch)
+        t1 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        out["losses"].append(float(metrics["loss"]))
+        _sync(torch)
+        out["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        out["batch_ms"].append((t1 - t0) * 1e3)
+        del batch
+    out["peak_gb"] = _peak_gb(torch)
+    losses = out["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"losses {losses} not finite and falling")
+    del opt, params
+    return out
+
+
+def _two_tower(torch, seed, mesh, rules) -> dict:
+    """two-tower-retrieval at its published widths (seeded weights):
+    retrieval_cand through K1 -> K2 -> K3, serve_p99, and training at
+    batch RECSYS_TRAIN["two_tower_batch"]."""
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs.flexvec import pem_serve_step_plain
+    from repro_torch.configs.recsys_archs import OVER, POOL, SHAPES
+    from repro_torch.data import recsys as RD
+    from repro_torch.models import recsys as R
+
+    arch = _family_arch("two-tower-retrieval")
+    cfg = arch.cfg
+    dev = torch.device(DEVICE)
+    out = {"arch": arch.arch_id}
+    t0 = time.perf_counter()
+    params = R.twotower_init(cfg, seed, device=DEVICE)
+    leaves = pytree.tree_leaves(params)
+    _sync(torch)
+    out["param_gb"] = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    out["init_s"] = time.perf_counter() - t0
+
+    # retrieval_cand: the candidates are the item tower over ids 0..n-1
+    t0 = time.perf_counter()
+    n = SHAPES["retrieval_cand"]["n_candidates"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        cand = R.item_tower(params, torch.arange(n, device=dev) % cfg.vocab_item,
+                            cfg, rules)
+    days = torch.rand(n, generator=gen, device=dev) * 90.0
+    raw = RD.twotower_batch(1, cfg.vocab_user, cfg.vocab_item, cfg.hist_len,
+                            seed)
+    user = [torch.from_numpy(raw[k]).to(dev) for k in ("user_id", "hist")]
+    spec = arch.build("retrieval_cand", mesh, rules)
+    args = _spec_args(spec, rules, (*leaves, *user, cand, days),
+                      "retrieval_cand")
+    _sync(torch)
+    _reset_peak(torch)
+    _reset_counts()
+    idx, val = spec.fn(*args)
+    _sync(torch)
+    counts = _counts()
+    peak = _peak_gb(torch)
+    expect = {"pem_score": 1, "topk": 6, "mmr": 1}
+    if DEVICE == "cpu":  # the plain versions count nothing
+        expect = dict.fromkeys(expect, 0)
+    if counts != expect:
+        raise AssertionError(f"two-tower retrieval_cand: launches {counts}, "
+                             f"expected {expect}")
+    if tuple(idx.shape) != (1, POOL) or not bool(torch.isfinite(val).all()):
+        raise AssertionError("two-tower retrieval_cand: picks or values")
+    with torch.no_grad():
+        u = R.user_tower(params, dict(zip(("user_id", "hist"), user)), cfg,
+                         rules).T.contiguous()
+    zero = torch.zeros_like(u)
+    wi, wv = pem_serve_step_plain(cand, days, u, zero, pool=POOL, over=OVER)
+    swaps = check_ranking("two-tower retrieval_cand",
+                          list(zip(idx[0].tolist(), val[0].tolist())),
+                          list(zip(wi[0].tolist(), wv[0].tolist())))
+    ret = {"n": n, "d": cand.shape[1], "launches": counts,
+           "adjacent_swaps": swaps, "n_swaps": len(swaps),
+           "peak_gb": peak}
+    if DEVICE == "cuda":
+        from repro_torch.kernels.mmr import kernel as mmr_kernel
+        from repro_torch.kernels.pem_score import kernel as pem_kernel
+
+        ret["k1_launch"] = pem_kernel.plan(n, cand.shape[1], 1)
+        ret["k3_launch"] = mmr_kernel.shape(OVER, cand.shape[1])
+    ret.update(_flexvec_kernels(torch, cand, days, u, zero, OVER, POOL, TOL))
+    ret["step_ms"] = time_ms(torch, lambda: spec.fn(*args), 10)
+    ret["plain_step_ms"] = time_ms(torch, lambda: pem_serve_step_plain(
+        cand, days, u, zero, pool=POOL, over=OVER), 1)
+    ret["seconds"] = time.perf_counter() - t0
+    out["retrieval_cand"] = ret
+    emit({"phase": "recsys_gnn", "part": "two-tower retrieval_cand",
+          "param_gb": out["param_gb"], "init_s": out["init_s"], **ret})
+    del cand, days, idx, val, wi, wv, args
+    _free(torch)
+
+    # serve_p99: the user tower at batch 512 against itself in f64 (the
+    # rows it reads and the tower's weights widened)
+    t0 = time.perf_counter()
+    b = SHAPES["serve_p99"]["batch"]
+    raw = RD.twotower_batch(b, cfg.vocab_user, cfg.vocab_item, cfg.hist_len,
+                            seed + 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    spec = arch.build("serve_p99", mesh, rules)
+    args = _spec_args(spec, rules, (*leaves, *batch.values()), "serve_p99")
+    got = spec.fn(*args)
+    uid, hist = batch["user_id"].long(), batch["hist"].long()
+    p64 = {"user_table": params["user_table"].index_select(0, uid).double(),
+           "item_table": params["item_table"].index_select(
+               0, hist.clamp(min=0).reshape(-1)).double(),
+           "user_w": [w.double() for w in params["user_w"]],
+           "user_b": [w.double() for w in params["user_b"]]}
+    b64 = {"user_id": torch.arange(b, device=dev),
+           "hist": torch.where(hist >= 0, torch.arange(
+               hist.numel(), device=dev).view(hist.shape), -1)}
+    with torch.no_grad():
+        want = R.user_tower(p64, b64, dataclasses.replace(
+            cfg, dtype=torch.float64), rules)
+    serve = {"batch": b, "f64_rel_err": _check_f64("two-tower serve_p99",
+                                                   got, want),
+             "ms": time_ms(torch, lambda: spec.fn(*args), 20),
+             "seconds": time.perf_counter() - t0}
+    out["serve_p99"] = serve
+    emit({"phase": "recsys_gnn", "part": "two-tower serve_p99", **serve})
+    del got, want, p64, args
+
+    # training at its full tables (the batch cut: the in-batch logits are
+    # B x B)
+    t0 = time.perf_counter()
+    b = RECSYS_TRAIN["two_tower_batch"]
+    raw = RD.twotower_batch(b, cfg.vocab_user, cfg.vocab_item, cfg.hist_len,
+                            seed + 2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    del leaves
+    train = _train(torch, lambda p, bb: R.twotower_loss(p, bb, cfg, rules),
+                   params, lambda i: batch, RECSYS_TRAIN["steps"])
+    train.update(batch=b, seconds=time.perf_counter() - t0)
+    out["train"] = train
+    emit({"phase": "recsys_gnn", "part": "two-tower train", **train})
+    del params, batch
+    _free(torch)
+    return out
+
+
+def _ctr(torch, arch_id, seed, mesh, rules) -> dict:
+    """A pointwise CTR arch (bst, autoint) at its published widths: the
+    serve_p99 and serve_bulk forwards through the cell's spec, each
+    against the same function in f64, then training at train_batch."""
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs.recsys_archs import SHAPES, smoke_data
+
+    arch = _family_arch(arch_id)
+    cfg = arch.cfg
+    out = {"arch": arch_id}
+    t0 = time.perf_counter()
+    params = arch._init(cfg, seed, device=DEVICE)
+    leaves = pytree.tree_leaves(params)
+    p64 = pytree.tree_map(lambda t: t.double(), params)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    for k, shape in enumerate(("serve_p99", "serve_bulk")):
+        b = SHAPES[shape]["batch"] if not RECSYS_SMOKE else 64 * (k + 1)
+        batch = smoke_data(arch_id, cfg, b, DEVICE, seed=seed + k)
+        spec = arch.build(shape, mesh, rules)
+        args = (*leaves, *batch.values())
+        if not RECSYS_SMOKE:
+            _spec_args(spec, rules, args, f"{arch_id} {shape}")
+        _reset_peak(torch)
+        got = spec.fn(*args)
+        with torch.no_grad():
+            want = arch._fwd(p64, batch, cfg64, rules)
+        out[shape] = {"batch": b,
+                      "f64_rel_err": _check_f64(f"{arch_id} {shape}", got,
+                                                want),
+                      "ms": time_ms(torch, lambda: spec.fn(*args), 5),
+                      "peak_gb": _peak_gb(torch)}
+        del got, want, batch, args
+    del p64
+    _free(torch)
+    b = SHAPES["train_batch"]["batch"] if not RECSYS_SMOKE else 256
+    batch = smoke_data(arch_id, cfg, b, DEVICE, seed=seed + 2)
+    del leaves
+    out["train"] = _train(torch, lambda p, bb: arch._loss(p, bb, cfg, rules),
+                          params, lambda i: batch, RECSYS_TRAIN["steps"])
+    out["train"]["batch"] = b
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "recsys_gnn", "part": arch_id, **out})
+    del params, batch
+    _free(torch)
+    return out
+
+
+def _pna(torch, seed, rules) -> dict:
+    """PNA at its published widths: minibatch_lg (the Reddit-scale source
+    graph on the host, its CSR, then RECSYS_TRAIN["pna_steps"] steps each
+    on a fresh 1,024-seed subgraph at fanout 15-10), full_graph_sm and
+    molecule; each part's first batch's forward against f64."""
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs.gnn import GNN_SHAPES, graph_batch
+    from repro_torch.data.graph import (CSRGraph, make_graph,
+                                        make_molecule_batch, sample_subgraph)
+    from repro_torch.models import pna
+
+    arch = _family_arch("pna")
+    out = {}
+    for shape in ("minibatch_lg", "full_graph_sm", "molecule"):
+        s = GNN_SHAPES[shape]
+        cfg = arch._cfg(s)
+        t0 = time.perf_counter()
+        part = {"shape": shape}
+        if shape == "minibatch_lg":
+            src = PNA_SOURCE if not RECSYS_SMOKE else dict(
+                n=5_000, e=50_000, d_feat=s["d_feat"], n_classes=41)
+            g = make_graph(src["n"], src["e"], src["d_feat"],
+                           n_classes=src["n_classes"], seed=seed)
+            part["graph_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            csr = CSRGraph(src["n"], g.edge_src, g.edge_dst)
+            part["csr_s"] = time.perf_counter() - t1
+            part["source"] = {"nodes": src["n"], "edges": src["e"]}
+            seeds = s["seeds"] if not RECSYS_SMOKE else 64
+
+            def next_batch(i, g=g, csr=csr, n=src["n"], seeds=seeds):
+                rng = np.random.default_rng(seed + i)
+                sub = sample_subgraph(g, csr, rng.choice(n, seeds,
+                                                         replace=False),
+                                      s["fanouts"], rng)
+                return graph_batch(sub, DEVICE)
+        else:
+            if shape == "full_graph_sm":
+                g = make_graph(s["n"], s["e"], s["d_feat"],
+                               n_classes=s["n_classes"], seed=seed)
+            else:
+                g = make_molecule_batch(s["batch"], s["nodes"], s["edges"],
+                                        s["d_feat"], n_classes=s["n_classes"],
+                                        seed=seed)
+            fixed = graph_batch(g, DEVICE)
+
+            def next_batch(i, fixed=fixed):
+                return fixed
+        params = pna.init_params(cfg, seed, device=DEVICE)
+        first = next_batch(0)
+        part["nodes"], part["edges"] = (int(first["feats"].shape[0]),
+                                        int(first["edge_src"].shape[0]))
+        # PNA's std aggregator, sqrt(relu(E[m^2] - E[m]^2) + 1e-5), cancels
+        # in f32 where a node's messages (nearly) agree, and the scalers
+        # carry it on (2.5 / 1e-5 for a node without in-edges): the card's
+        # f32 forward is held to f64 within F64_RTOL plus twice the CPU's
+        # f32 error on the same inputs
+        p64 = pytree.tree_map(lambda t: t.double(), params)
+        with torch.no_grad():
+            got = pna.forward(params, first, cfg, rules)
+            want = pna.forward(p64, first, dataclasses.replace(
+                cfg, dtype=torch.float64), rules)
+            cpu = pna.forward(pytree.tree_map(lambda t: t.cpu(), params),
+                              {k: v.cpu() for k, v in first.items()}, cfg,
+                              rules)
+        part["cpu_f32_rel_err"] = _rel_err(cpu, want.cpu())
+        part["f64_rel_err"] = _check_f64(f"pna {shape}", got, want,
+                                         2.0 * part["cpu_f32_rel_err"])
+        del got, want, cpu, p64, first
+        part["train"] = _train(torch,
+                               lambda p, b, cfg=cfg: pna.loss_fn(p, b, cfg,
+                                                                 rules),
+                               params, next_batch, RECSYS_TRAIN["pna_steps"])
+        part["seconds"] = time.perf_counter() - t0
+        emit({"phase": "recsys_gnn", "part": f"pna {shape}", **part})
+        out[shape] = part
+        del g, params, next_batch
+        _free(torch)
+    return out
+
+
+def phase_recsys_gnn(torch, seed: int) -> dict:
+    """The GNN and recsys families on the card at their published widths,
+    seeded from ``seed``: two-tower-retrieval (retrieval_cand through
+    K1 -> K2 -> K3 against the plain step, serve_p99, training), bst and
+    autoint (serve forwards, training), PNA (minibatch_lg through the
+    neighbour sampler, full_graph_sm, molecule).  dlrm-mlperf (96.1 GB of
+    tables) and PNA's ogb_products run only as dry-run cells.  The
+    phase's launches are those of the retrieval_cand step's one run."""
+    from repro_torch.dist.sharding import default_rules
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(DEVICE)
+    rules = default_rules(mesh)
+    out = {"two_tower": _two_tower(torch, seed, mesh, rules)}
+    out["launches"] = out["two_tower"]["retrieval_cand"]["launches"]
+    for arch_id in ("bst", "autoint"):
+        out[arch_id] = _ctr(torch, arch_id, seed, mesh, rules)
+    out["pna"] = _pna(torch, seed, rules)
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "recsys_gnn", "launches": out["launches"],
+          "seconds": out["seconds"],
+          "part_seconds": {
+              "two_tower": sum(out["two_tower"][k]["seconds"]
+                               for k in ("retrieval_cand", "serve_p99",
+                                         "train")),
+              "bst": out["bst"]["seconds"],
+              "autoint": out["autoint"]["seconds"],
+              "pna": sum(p["seconds"] for p in out["pna"].values())}})
+    return out
+
+
 def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the flexvec_arch phase's inputs and of "
-                         "the lm phase's weights and requests")
+                    help="seed of the flexvec_arch phase's inputs, of the "
+                         "lm phase's weights and requests, and of the "
+                         "recsys_gnn phase's weights and data")
     cli = ap.parse_args()
     import torch
 
@@ -1998,6 +2408,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     paths["lm"] = phase_lm(torch, cli.seed)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["recsys_gnn"] = phase_recsys_gnn(torch, cli.seed)["launches"]
 
     counts = main_path["launches"]
     picks = [

@@ -12,12 +12,15 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.dist.sharding import ShardingRules, Spec
 from repro_torch.roofline.analysis import StepCost
+from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_update,
+                                         loss_and_grads)
 
 
 @dataclasses.dataclass
@@ -67,6 +70,64 @@ def meta(shape: Tuple[int, ...], dtype: torch.dtype, spec: Spec) -> torch.Tensor
     return t
 
 
+def named_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, leaf) of a tree of dicts and lists, in the order
+    ``torch.utils._pytree`` flattens it; anything else (a tensor, a spec
+    tuple) is a leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def train_step_fn(loss_fn: Callable, ocfg: AdamWConfig) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, metrics): the
+    gradient of ``loss_fn(params, batch)`` and one AdamW update (in
+    place), the reference's ``train_step``."""
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(loss_fn, params, batch)
+        params, opt_state, metrics = adamw_update(ocfg, params, grads,
+                                                  opt_state)
+        return params, opt_state, {"loss": loss, **metrics}
+
+    return train_step
+
+
+def train_spec(loss_fn: Callable, params: Any, specs: Any,
+               batch: Dict[str, torch.Tensor], desc: str) -> LoweredSpec:
+    """A cell's train step over meta params (``params``, laid out by the
+    matching tree ``specs``) and a meta ``batch`` (each tensor with its
+    ``spec``): ``args`` are the params', m's and v's leaves, then the
+    batch's tensors; the step returns the three sets of leaves updated,
+    the loss and the gradient norm."""
+    leaves, tdef = pytree.tree_flatten(params)
+    p = [meta(t.shape, t.dtype, sp)
+         for t, (_, sp) in zip(leaves, named_leaves(specs))]
+    moments = [meta(t.shape, torch.float32, t.spec) for t in p * 2]
+    names = list(batch)
+    n = len(p)
+    step = train_step_fn(loss_fn, AdamWConfig())
+
+    def fn(*args):
+        def tree(part):
+            return pytree.tree_unflatten(list(part), tdef)
+
+        opt = OptState(0, tree(args[n:2 * n]), tree(args[2 * n:3 * n]))
+        new_p, opt, metrics = step(tree(args[:n]), opt,
+                                   dict(zip(names, args[3 * n:])))
+        return (*pytree.tree_leaves(new_p), *pytree.tree_leaves(opt.m),
+                *pytree.tree_leaves(opt.v), metrics["loss"],
+                metrics["grad_norm"])
+
+    return LoweredSpec(fn=fn, args=tuple(p + moments + list(batch.values())),
+                       static_desc=desc)
+
+
 class ArchSpec(abc.ABC):
     """One selectable architecture (``--arch``)."""
 
@@ -84,8 +145,10 @@ class ArchSpec(abc.ABC):
 
     @abc.abstractmethod
     def smoke_run(self) -> Dict[str, Any]:
-        """Reduced-config forward/train step on the CPU; returns
-        diagnostics (loss, shapes) for the per-arch smoke tests."""
+        """Reduced-config forward/train step; returns diagnostics (loss,
+        shapes) for the per-arch smoke tests.  The LM and flexvec archs'
+        run on the CPU; the GNN and recsys archs' take ``device=`` (the
+        card by default), which ``launch/train.py`` passes."""
 
     @abc.abstractmethod
     def step_cost(self, shape: str, rules: ShardingRules) -> StepCost:

@@ -24,13 +24,13 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchSpec, LoweredSpec, ShapeCell, meta
+from repro_torch.configs.base import (ArchSpec, LoweredSpec, ShapeCell, meta,
+                                      train_step_fn)
 from repro_torch.dist.sharding import ShardingRules, default_rules
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import LMConfig, MoEConfig
 from repro_torch.roofline.analysis import KernelWork, StepCost
-from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_update,
-                                         init_opt_state, loss_and_grads)
+from repro_torch.train.optimizer import AdamWConfig, OptState, init_opt_state
 
 _SKIP_500K = (
     "long_500k requires sub-quadratic attention; this arch is pure "
@@ -50,17 +50,7 @@ LM_SHAPES = {
 def lm_train_step(cfg: LMConfig, rules: ShardingRules, ocfg: AdamWConfig):
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
     loss's gradient and one AdamW update (in place)."""
-
-    def loss_fn(params, batch):
-        return T.lm_loss(params, batch, cfg, rules)
-
-    def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(loss_fn, params, batch)
-        params, opt_state, metrics = adamw_update(ocfg, params, grads,
-                                                  opt_state)
-        return params, opt_state, {"loss": loss, **metrics}
-
-    return train_step
+    return train_step_fn(lambda p, b: T.lm_loss(p, b, cfg, rules), ocfg)
 
 
 def decode_rules(rules: ShardingRules, batch: int) -> ShardingRules:

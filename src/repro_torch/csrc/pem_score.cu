@@ -60,9 +60,12 @@
 //   slower on the card: the round trip and its two barriers cost more
 //   than the L2 saves by merging sectors.
 //
-// d <= 128 (the port's embeddings are 128-wide; the ring and the split
-// query must fit in 227 KB), d % 4 == 0 (d % 8 for bf16: TMA row strides
-// are multiples of 16 bytes), any N and B >= 1.  One launch per call.
+// d <= 256 (flexvec's embeddings are 128-wide, a two-tower model's item
+// vectors 256; the ring and the split query must fit in 227 KB: at d = 256
+// in f32 a stage is 64 KB, so the ring has two stages, and past B = 16 the
+// product narrows until a restaged chunk fits beside them), d % 4 == 0
+// (d % 8 for bf16: TMA row strides are multiples of 16 bytes), any N and
+// B >= 1.  One launch per call.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +81,7 @@ constexpr int kBoxBytes = kRows * 128;  // one 128-byte-wide swizzled box
 constexpr int kMaxStages = 8;
 constexpr int kSmemLimit = 232448;
 constexpr int kMaxDevices = 64;  // devices whose launch attribute is cached
+constexpr int kMaxD = 256;       // the widest corpus row the plan takes
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -686,42 +690,46 @@ struct Plan {
 // Product width by batch, ring depth and query residency by the shared
 // memory budget: the split query stays resident if every chunk fits
 // beside a ring of at least two stages, else each warpgroup restages its
-// chunk per tile.  The stages are a multiple of the warpgroups, so each
-// stage serves one warpgroup and a waiter is never two phases ahead of
-// its barrier.
+// chunk per tile.  Where neither fits (d > 128 at B > 16: a 64-wide chunk
+// of a 256-deep query is 128 KB) the product narrows to the next width,
+// down to 8.  The stages are a multiple of the warpgroups, so each stage
+// serves one warpgroup and a waiter is never two phases ahead of its
+// barrier.
 cudaError_t make_plan(int n, int d, int b, int bf16, int sms, Plan* pl) {
-  if (n <= 0 || b <= 0 || d <= 0 || d > 128) return cudaErrorInvalidValue;
-  const int nw = b <= 4 ? 8 : b <= 8 ? 16 : b <= 16 ? 32 : 64;
+  if (n <= 0 || b <= 0 || d <= 0 || d > kMaxD) return cudaErrorInvalidValue;
   const int box_k = bf16 ? 64 : 32;
   // boxes go in pairs: a box wholly past d is zero-filled by TMA
   const int nbox = ((d + box_k - 1) / box_k + 1) / 2 * 2;
   const uint32_t stage = nbox * kBoxBytes;
-  const uint32_t qchunk = 2 * (nbox * box_k / 32) * nw * 128;
-  const int nchunks = (b + nw / 2 - 1) / (nw / 2);
-  const uint32_t hl = 2 * nchunks * (nw / 2) * 4;
-  // + alignment slack, the rows' factors and one barrier per stage
-  const size_t fixed = 1024 + hl + kMaxStages * (kRows * 4 + 8);
-  for (int resident = 1; resident >= 0; --resident) {
-    const size_t nq = resident ? nchunks : kConsumers;
-    for (int s = kMaxStages; s >= kConsumers; s -= kConsumers) {
-      if (fixed + s * static_cast<size_t>(stage) + nq * qchunk >
-          static_cast<size_t>(kSmemLimit))
-        continue;
-      pl->nw = nw;
-      pl->nchunks = nchunks;
-      pl->nbox = nbox;
-      pl->stages = s;
-      pl->resident = resident;
-      pl->ntiles = (n + kRows - 1) / kRows;
-      pl->grid = pl->ntiles < sms ? pl->ntiles : sms;
-      pl->stage_bytes = stage;
-      pl->qchunk_bytes = qchunk;
-      pl->q_off = s * stage;
-      pl->rows_off = pl->q_off + static_cast<uint32_t>(nq) * qchunk;
-      pl->hl_off = pl->rows_off + s * kRows * 4;
-      pl->bar_off = pl->hl_off + hl;
-      pl->smem = pl->bar_off + s * 8 + 1024;
-      return cudaSuccess;
+  for (int nw = b <= 4 ? 8 : b <= 8 ? 16 : b <= 16 ? 32 : 64; nw >= 8;
+       nw /= 2) {
+    const uint32_t qchunk = 2 * (nbox * box_k / 32) * nw * 128;
+    const int nchunks = (b + nw / 2 - 1) / (nw / 2);
+    const uint32_t hl = 2 * nchunks * (nw / 2) * 4;
+    // + alignment slack, the rows' factors and one barrier per stage
+    const size_t fixed = 1024 + hl + kMaxStages * (kRows * 4 + 8);
+    for (int resident = 1; resident >= 0; --resident) {
+      const size_t nq = resident ? nchunks : kConsumers;
+      for (int s = kMaxStages; s >= kConsumers; s -= kConsumers) {
+        if (fixed + s * static_cast<size_t>(stage) + nq * qchunk >
+            static_cast<size_t>(kSmemLimit))
+          continue;
+        pl->nw = nw;
+        pl->nchunks = nchunks;
+        pl->nbox = nbox;
+        pl->stages = s;
+        pl->resident = resident;
+        pl->ntiles = (n + kRows - 1) / kRows;
+        pl->grid = pl->ntiles < sms ? pl->ntiles : sms;
+        pl->stage_bytes = stage;
+        pl->qchunk_bytes = qchunk;
+        pl->q_off = s * stage;
+        pl->rows_off = pl->q_off + static_cast<uint32_t>(nq) * qchunk;
+        pl->hl_off = pl->rows_off + s * kRows * 4;
+        pl->bar_off = pl->hl_off + hl;
+        pl->smem = pl->bar_off + s * 8 + 1024;
+        return cudaSuccess;
+      }
     }
   }
   return cudaErrorInvalidValue;
@@ -816,7 +824,7 @@ extern "C" int flexvec_pem_score_plan(int n, int d, int b, int m_bf16,
 }
 
 // m: (n, d) row-major f32 (m_bf16 = 0) or bf16 (m_bf16 = 1), 16-byte
-// aligned, d <= 128 and d * element size a multiple of 16; q_pre, q_sup:
+// aligned, d <= 256 and d * element size a multiple of 16; q_pre, q_sup:
 // (d, b) row-major f32; then either decay (n,) f32, or days (n,) f32 with
 // half_lives (b,) f32, or all three null for ones (decay and days 16-byte
 // aligned); out[r*so_n + c*so_b] receives the score of row r for plan c.

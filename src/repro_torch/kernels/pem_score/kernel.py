@@ -11,9 +11,10 @@ import torch
 from repro_torch.kernels import _build
 
 _P = ctypes.c_void_p
-#: the kernel keeps a 64-row tile of the full depth and the split query in
-#: shared memory, so it takes embeddings up to this width
-MAX_D = 128
+#: the kernel keeps 64-row tiles of the full depth and the split query in
+#: shared memory, so it takes embeddings up to this width (a two-tower
+#: model's 256-wide item vectors)
+MAX_D = 256
 
 
 @functools.lru_cache(maxsize=None)

@@ -107,15 +107,14 @@ def run_cell(arch_id: str, shape: str, multi_pod: bool,
 
 def cell_list():
     """(arch, shape) of every cell to run, by the reference's rule: the
-    assigned cells of each ported architecture first, then those beyond
+    assigned cells of each assigned architecture first, then those beyond
     the assignment (flexvec's, and a cell skipped per assignment that is
-    run beyond it, as the LM archs' long_500k decode).  The GNN and recsys
-    architectures wait for ROADMAP Queue 1 item 5."""
-    from repro_torch.configs import ASSIGNED, REGISTRY
+    run beyond it, as the LM archs' long_500k decode)."""
+    from repro_torch.configs import ASSIGNED, get_arch
 
     assigned, beyond = [], []
-    for aid in [a for a in ASSIGNED if a in REGISTRY] + ["flexvec"]:
-        for shape, cell in REGISTRY[aid].cells().items():
+    for aid in ASSIGNED + ["flexvec"]:
+        for shape, cell in get_arch(aid).cells().items():
             if cell.beyond_assignment or cell.skip_reason or aid == "flexvec":
                 if not cell.skip_reason or cell.beyond_assignment:
                     beyond.append((aid, shape))

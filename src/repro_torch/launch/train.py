@@ -1,10 +1,12 @@
 """Training launcher: ``--arch`` selects an assigned architecture.
 
-The port of ``repro.launch.train``.  The LM architectures train their
-reduced (smoke) config by default and their published config with
-``--full``; real steps, checkpoints and resume, on the card unless
-``--device cpu`` asks for the CPU.  The GNN and recsys architectures are
-not ported yet: ``get_arch`` raises for them (ROADMAP Queue 1 item 5).
+The port of ``repro.launch.train``, on the card unless ``--device cpu``
+asks for the CPU.  The LM architectures train their reduced (smoke)
+config by default and their published config with ``--full``; real
+steps, checkpoints and resume.  The GNN and recsys architectures run
+their arch's smoke path (one step's diagnostics), as the reference's
+launcher does; their full-scale steps run in the dry run and on the card
+in ``chip_smoke.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --steps 50 [--ckpt-dir DIR] [--resume] [--full] [--device cpu]
@@ -70,6 +72,13 @@ def main() -> None:
     args = build_parser().parse_args()
     arch = get_arch(args.arch)
     rules = default_rules(make_local_mesh(args.device))
+    if arch.family != "lm":
+        # GNN / recsys: the arch's smoke path, one step's diagnostics
+        print(f"[{args.arch}] family={arch.family}: running reduced train "
+              f"steps")
+        out = arch.smoke_run(device=args.device)
+        print(f"one-step diagnostics: {out}")
+        return
     trainer = lm_trainer(arch, args, rules)
     if args.resume and trainer.try_resume():
         print(f"resumed from step {trainer.step}")

@@ -18,10 +18,10 @@ from __future__ import annotations
 import functools
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.dist.sharding import ShardingRules, constrain
+from repro_torch.models import check_device, params_from_numpy  # noqa: F401
 from repro_torch.models.layers import (
     LMConfig,
     Params,
@@ -29,15 +29,6 @@ from repro_torch.models.layers import (
     mlp_block,
     rms_norm,
 )
-
-
-def check_device(device: Any) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device needs a card."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the LM runs on the card; pass "
-                           "device='cpu' to run on the CPU")
-    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -99,21 +90,6 @@ def init_params(cfg: LMConfig, seed: int = 0, *,
     if "unembed" in shapes:
         params["unembed"] = w(shapes["unembed"])
     return params
-
-
-def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
-                      device: Any = "cuda") -> Params:
-    """The reference's params tree (numpy arrays; bf16 leaves passed as f32,
-    since bf16 -> f32 -> bf16 is exact) as the port's tensors in
-    ``cfg.dtype`` on ``device``."""
-    dev = check_device(device)
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return torch.tensor(np.asarray(x), dtype=cfg.dtype, device=dev)
-
-    return conv(tree)
 
 
 def param_shardings(cfg: LMConfig, rules: ShardingRules) -> Params:

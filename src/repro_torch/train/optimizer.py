@@ -11,8 +11,13 @@ The port of ``repro.train.optimizer``:
 
 Params, ``m`` and ``v`` are updated in place, one tensor at a time, so a
 full-width step holds f32 temporaries of one tensor, never an f32 copy
-of every gradient.  ``OptState.step`` is a host integer: the learning
-rate is computed on the host in f32, as the reference computes it.
+of every gradient; a tensor above ``SLICE_BYTES`` of f32 (a two-tower
+model's 8.6 GB item table) is taken in slices along dim 0, for the
+gradient norm and for the update, so the temporaries stay that size.  The
+update's arithmetic is element-wise, so a sliced update is bit-equal to a
+whole one; the norm adds the slices' partial sums in order.
+``OptState.step`` is a host integer: the learning rate is computed on the
+host in f32, as the reference computes it.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ def init_opt_state(params: Params) -> OptState:
 
 def opt_state_from_numpy(state: Any, device: Any = "cuda") -> OptState:
     """The reference's ``OptState`` (numpy leaves) as the port's."""
-    from repro_torch.models.transformer import check_device
+    from repro_torch.models import check_device
 
     dev = check_device(device)
 
@@ -76,6 +81,20 @@ def lr_schedule(cfg: AdamWConfig, step: int) -> float:
                    f32(0.0), f32(1.0))
     cos = f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * prog))
     return float(f32(cfg.lr) * warm * (f32(0.1) + f32(0.9) * cos))
+
+
+#: a leaf whose f32 copy is larger than this is taken in slices along
+#: dim 0 of at most this size
+SLICE_BYTES = 1 << 30
+
+
+def _slices(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``t`` itself, or its dim-0 slices (views) of at most
+    ``SLICE_BYTES`` of f32 each."""
+    if t.dim() == 0 or t.numel() * 4 <= SLICE_BYTES:
+        return (t,)
+    rows = max(1, SLICE_BYTES // (4 * (t.numel() // t.shape[0])))
+    return t.split(rows)
 
 
 def _widen(cfg: AdamWConfig, g: torch.Tensor) -> torch.Tensor:
@@ -102,9 +121,10 @@ def adamw_update(
 
     sq = None
     for g in g_leaves:
-        g32 = _widen(cfg, g)
-        part = torch.sum(g32 * g32)
-        sq = part if sq is None else sq + part
+        for gs in _slices(g):
+            g32 = _widen(cfg, gs)
+            part = torch.sum(g32 * g32)
+            sq = part if sq is None else sq + part
     gnorm = torch.sqrt(sq)
     scale = None
     if cfg.clip_norm is not None:
@@ -117,16 +137,17 @@ def adamw_update(
     bc1 = float(f32(1.0) - f32(b1) ** f32(step))
     bc2 = float(f32(1.0) - f32(b2) ** f32(step))
 
-    for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
-        g32 = _widen(cfg, g)
-        if scale is not None:
-            g32 = g32 * scale
-        m.mul_(b1).add_(g32 * (1 - b1))
-        v.mul_(b2).add_(g32 * (1 - b2) * g32)
-        p32 = p.to(torch.float32)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-            + cfg.weight_decay * p32
-        p.copy_((p32 - lr * delta).to(p.dtype))
+    for leaf in zip(p_leaves, g_leaves, m_leaves, v_leaves):
+        for p, g, m, v in zip(*map(_slices, leaf)):
+            g32 = _widen(cfg, g)
+            if scale is not None:
+                g32 = g32 * scale
+            m.mul_(b1).add_(g32 * (1 - b1))
+            v.mul_(b2).add_(g32 * (1 - b2) * g32)
+            p32 = p.to(torch.float32)
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+                + cfg.weight_decay * p32
+            p.copy_((p32 - lr * delta).to(p.dtype))
     metrics = {"grad_norm": gnorm, "lr": lr}
     return pytree.tree_unflatten(p_leaves, spec), OptState(step, state.m,
                                                            state.v), metrics

@@ -139,9 +139,9 @@ def test_step_on_meta_returns_shapes_and_launches_nothing():
                           torch.empty(1000, device=m),
                           torch.empty(128, 4, device=m),
                           torch.empty(128, 4, device=m), pool=50, over=40)
-    with pytest.raises(ValueError, match="d <= 128"):
-        pem_score(torch.empty(10, 256, device=m), torch.empty(256, 2, device=m),
-                  torch.empty(256, 2, device=m))
+    with pytest.raises(ValueError, match="d <= 256"):
+        pem_score(torch.empty(10, 260, device=m), torch.empty(260, 2, device=m),
+                  torch.empty(260, 2, device=m))
 
 
 # -- two_stage and mmr_shards on gloo ranks ------------------------------------
@@ -318,19 +318,25 @@ def test_local_mesh_is_the_card_unless_the_cpu_is_asked():
 
 
 def test_registry_holds_flexvec_and_names_the_unported():
+    """Every assigned id resolves (none is left unported), with the
+    reference's family and cells; flexvec beside them; an unknown id
+    raises."""
     assert TC.ASSIGNED == R_ASSIGNED and len(TC.ASSIGNED) == 10
-    assert set(TC.REGISTRY) == {"flexvec"} | set(LM_IDS)
+    assert set(TC.REGISTRY) == {"flexvec"} | set(TC.ASSIGNED)
     assert isinstance(TC.get_arch("flexvec"), TF.FlexvecArch)
-    for aid in LM_IDS:
+    families = {}
+    for aid in TC.ASSIGNED:
         arch, ref = TC.get_arch(aid), R_get_arch(aid)
-        assert isinstance(arch, TL.LMArch) and arch.family == "lm"
+        assert arch.arch_id == aid and arch.family == ref.family
+        families[aid] = arch.family
         assert {n: dataclasses.asdict(c) for n, c in arch.cells().items()} \
             == {n: dataclasses.asdict(c) for n, c in ref.cells().items()}
         for shape in arch.cells():
             assert arch.model_flops(shape) == ref.model_flops(shape)
-    for aid in set(TC.ASSIGNED) - set(LM_IDS):
-        with pytest.raises(KeyError, match="Queue 1 item 5"):
-            TC.get_arch(aid)
+    assert families == {**dict.fromkeys(LM_IDS, "lm"), "pna": "gnn",
+                        **dict.fromkeys(["bst", "autoint", "dlrm-mlperf",
+                                         "two-tower-retrieval"], "recsys")}
+    assert all(isinstance(TC.get_arch(a), TL.LMArch) for a in LM_IDS)
     with pytest.raises(KeyError, match="unknown arch"):
         TC.get_arch("nope")
 
@@ -442,14 +448,21 @@ def test_drive_all_and_the_report_tables(tmp_path, monkeypatch):
                                              dryrun_table, load_cells,
                                              roofline_table)
 
-    # the reference's rule: each ported arch's assigned cells, then the
+    # the reference's rule: each assigned arch's assigned cells, then the
     # cells beyond the assignment (long_500k, skipped per assignment but
     # run; flexvec's)
+    recsys = ["bst", "autoint", "dlrm-mlperf", "two-tower-retrieval"]
     assert dryrun.cell_list() == (
         [(a, s) for a in LM_IDS
          for s in ("train_4k", "prefill_32k", "decode_32k")]
+        + [("pna", s) for s in ("full_graph_sm", "minibatch_lg",
+                                "ogb_products", "molecule")]
+        + [(a, s) for a in recsys
+           for s in ("train_batch", "serve_p99", "serve_bulk",
+                     "retrieval_cand")]
         + [(a, "long_500k") for a in LM_IDS]
         + [("flexvec", s) for s in TF.SHAPES])
+    assert len(dryrun.cell_list()) == 43
     # the sweep's mechanics over flexvec's cells and one LM decode cell
     # (every LM cell runs in test_lm_cells_run_on_both_meshes)
     cells_run = [("internlm2-1.8b", "decode_32k")] + [

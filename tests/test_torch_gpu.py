@@ -132,6 +132,31 @@ def test_pem_score_narrow_depths(cuda, d, b):
             pem_score(m.to(torch.bfloat16), qp, qs)
 
 
+@pytest.mark.parametrize("d,b", [(256, 1), (256, 16), (256, 17), (256, 64),
+                                 (200, 3), (132, 33)])
+def test_pem_score_wide_depths(cuda, d, b):
+    """Depths past 128 (a two-tower model's 256-wide item vectors): eight
+    boxes a row, a two-stage ring, and past B = 16 the product narrowed
+    until a restaged query chunk fits beside it; the ragged d edge of 200
+    and 132 zero-filled by TMA.  Both factor forms, f32 and bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + b)
+    n = 100_003
+    m = _unit_rows(gen, n, d, device=cuda)
+    qp = torch.randn(d, b, generator=gen, device=cuda)
+    qs = torch.randn(d, b, generator=gen, device=cuda) * 0.3
+    decay = 1.0 / (1.0 + torch.rand(n, generator=gen, device=cuda) * 10)
+    days = torch.rand(n, generator=gen, device=cuda) * 90
+    hl = torch.full((b,), 30.0, device=cuda)
+    _check_pem(m, qp, qs, 1e-5, decay=decay)
+    _check_pem(m, qp, qs, 1e-5, days=days, hl=hl)
+    if d % 8 == 0:
+        _check_pem(m.to(torch.bfloat16), qp, qs, 2e-2, days=days, hl=hl)
+    with pytest.raises(ValueError, match="d <= 256"):
+        pem_score(torch.zeros(8, 260, device=cuda),
+                  torch.zeros(260, 1, device=cuda),
+                  torch.zeros(260, 1, device=cuda))
+
+
 @pytest.mark.parametrize("b", [1, 32])
 def test_pem_score_large_rows_keep_f32_accuracy(cuda, b):
     """Rows with norms up to 1e3: plain TF32 would be off by ~1e-3 of the
@@ -626,6 +651,48 @@ def test_flexvec_step_matches_plain(cuda, dtype):
     for r in range(b):
         _assert_same_mmr_ranking(list(zip(gi[r].tolist(), gv[r].tolist())),
                                  list(zip(wi[r].tolist(), wv[r].tolist())))
+
+
+def test_two_tower_retrieval_step_on_the_card(cuda):
+    """The two-tower ``retrieval_cand`` step at the smoke config widened
+    to the published 256-wide tower output, on the card: the user tower,
+    then K1 over 20,000 seeded unit candidates at d = 256 with decay:30,
+    K2 for 1,500, the pool's rows, K3 for 500 (one K1 launch, one top-k
+    call of six launches, one K3 launch), against the same step on the
+    kernels' plain versions: picks equal but for adjacent swaps of near
+    ties, scores within 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.flexvec import pem_serve_step_plain
+    from repro_torch.configs.recsys_archs import retrieval_step, smoke_data
+    from repro_torch.dist.sharding import default_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import recsys as R
+
+    arch = get_arch("two-tower-retrieval")
+    cfg = dataclasses.replace(arch.smoke_cfg, tower_mlp=(64, 256))
+    rules = default_rules(make_local_mesh("cuda"))
+    params = arch._init(cfg, 0, device=cuda)
+    batch = {k: v[:1] for k, v in smoke_data(arch.arch_id, cfg, 1,
+                                             cuda).items()}
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    cand = _unit_rows(gen, 20_000, 256, device=cuda)
+    days = torch.rand(20_000, generator=gen, device=cuda) * 90
+
+    def counts():
+        return pem_score.launches, topk.launches, mmr_select.launches
+
+    before = counts()
+    gi, gv = retrieval_step(params, batch, cand, days, cfg, rules)
+    launches = tuple(a - c for a, c in zip(counts(), before))
+    with torch.no_grad():
+        u = R.user_tower(params, batch, cfg, rules).T.contiguous()
+    wi, wv = pem_serve_step_plain(cand, days, u, torch.zeros_like(u),
+                                  pool=500, over=1500)
+    torch.cuda.synchronize()
+    assert launches == (1, 6, 1)
+    assert gi.shape == (1, 500)
+    _assert_same_mmr_ranking(list(zip(gi[0].tolist(), gv[0].tolist())),
+                             list(zip(wi[0].tolist(), wv[0].tolist())))
 
 
 def test_bf16_worker_views_the_codes_on_the_card(cuda):

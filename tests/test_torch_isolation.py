@@ -50,7 +50,10 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.train.loop", "repro_torch.train.checkpoint",
             "repro_torch.train.elastic", "repro_torch.data.loader",
             "repro_torch.serve.lm_engine", "repro_torch.configs.lm",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.models.pna",
+            "repro_torch.models.recsys", "repro_torch.data.graph",
+            "repro_torch.data.recsys", "repro_torch.configs.gnn",
+            "repro_torch.configs.recsys_archs"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -134,11 +137,29 @@ def test_entry_points_default_to_the_card():
         LMDecodeEngine(cfg, T.init_params(cfg), None)
     engine = LMDecodeEngine(cfg, T.init_params(cfg, device="cpu"), None)
     assert engine.cache[0].device.type == "cpu"
+    # the GNN and recsys families: params and the archs' smoke paths
+    from repro_torch.models import pna, recsys
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pna.init_params(get_arch("pna")._cfg(
+            {"d_feat": 8, "n_classes": 2, "task": "node"}))
+    for arch_id in ("bst", "autoint", "dlrm-mlperf", "two-tower-retrieval"):
+        arch = get_arch(arch_id)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            arch._init(arch.smoke_cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recsys.params_from_numpy({"w": np.zeros((2, 2), np.float32)},
+                                 get_arch("bst").smoke_cfg)
+    for arch_id in ("pna", "bst"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_arch(arch_id).smoke_run()
     for cli in (["repro_torch.launch.serve", "--chunks", "50"],
                 ["repro_torch.bench.behavioral", "--datasets",
                  "nfcorpus-like"],
                 ["repro_torch.launch.train", "--arch", "internlm2-1.8b",
-                 "--steps", "1"]):
+                 "--steps", "1"],
+                ["repro_torch.launch.train", "--arch", "pna"],
+                ["repro_torch.launch.train", "--arch", "two-tower-retrieval"]):
         out = subprocess.run(
             [sys.executable, "-m", *cli],
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),

@@ -21,6 +21,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ASSIGNED as R_ASSIGNED  # noqa: E402
+from repro.configs import get_arch as R_get_arch  # noqa: E402
 from repro.data import loader as RD  # noqa: E402
 from repro.models import transformer as RT  # noqa: E402
 from repro.train import elastic as REl  # noqa: E402
@@ -105,6 +107,55 @@ def test_adamw_matches_over_steps_with_warmup_and_clip(compress):
         torch.float32
     for a, b in zip(jax.tree.leaves(carried.v), jax.tree.leaves(ts.v)):
         assert err(a, b) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("compress", [True, False])
+def test_sliced_update_is_bit_equal_to_the_whole_leaf(monkeypatch, compress):
+    """A leaf above ``SLICE_BYTES`` is updated in dim-0 slices (here 3
+    rows of a 10 x 6 matrix, a bf16 leaf and a scalar beside it): params,
+    m and v bit-equal to the whole-leaf update over three steps.  With the
+    clip engaged the norm's slice-by-slice partial sums must also add up
+    to the whole leaf's: the gradients are dyadic (k / 64, |k| < 64), so
+    every f32 partial sum is exact in any order; with random gradients and
+    no clip the norm agrees to f32 rounding."""
+    def state(rng):
+        t = {"w": torch.from_numpy(rng.standard_normal((10, 6))
+                                   .astype(np.float32)),
+             "b": torch.from_numpy(rng.standard_normal((7, 4))
+                                   .astype(np.float32)).to(torch.bfloat16),
+             "s": torch.tensor(0.5)}
+        return t, TO.init_opt_state(t)
+
+    def grads(rng, dyadic):
+        g = {"w": rng.standard_normal((10, 6)), "b": rng.standard_normal(
+            (7, 4)), "s": rng.standard_normal(())}
+        if dyadic:
+            g = {k: np.round(v * 16) / 64 for k, v in g.items()}
+        return {k: torch.tensor(v, dtype=torch.float32) for k, v in g.items()}
+
+    for clip, dyadic in ((0.5, True), (None, False)):
+        cfg = TO.AdamWConfig(lr=1e-2, warmup_steps=1, clip_norm=clip,
+                             compress_grads=compress)
+        runs = []
+        for slice_bytes in (TO.SLICE_BYTES, 3 * 6 * 4):
+            monkeypatch.setattr(TO, "SLICE_BYTES", slice_bytes)
+            assert len(TO._slices(torch.zeros(10, 6))) == (
+                1 if slice_bytes > 240 else 4)
+            rng = np.random.default_rng(7)
+            p, s = state(rng)
+            norms = []
+            for _ in range(3):
+                p, s, m = TO.adamw_update(cfg, p, grads(rng, dyadic), s)
+                norms.append(float(m["grad_norm"]))
+            runs.append((p, s, norms))
+        (p0, s0, n0), (p1, s1, n1) = runs
+        for a, b in ((p0, p1), (s0.m, s1.m), (s0.v, s1.v)):
+            for k in a:
+                assert torch.equal(a[k], b[k]), (clip, k)
+        if dyadic:
+            assert n0 == n1
+        else:
+            assert n0 == pytest.approx(n1, rel=1e-6)
 
 
 def test_lr_schedule_matches():
@@ -320,5 +371,9 @@ def test_launcher_trains_and_resumes_on_the_cpu(tmp_path, monkeypatch, capsys):
     launch_train.main()
     assert "resumed from step 4" in capsys.readouterr().out
     assert C.latest_step(tmp_path) == 6
-    with pytest.raises(KeyError, match="Queue 1 item 5"):
-        get_arch("pna")
+    # every assigned id resolves for the launcher, with the reference's
+    # family and cells
+    for aid in R_ASSIGNED:
+        arch, ref = get_arch(aid), R_get_arch(aid)
+        assert arch.family == ref.family
+        assert list(arch.cells()) == list(ref.cells())
