@@ -94,9 +94,14 @@ reference package.  Prints one JSON object per line, in order:
     in-batch logits grow as B^2) on the full tables.  bst and autoint:
     serve_p99 and serve_bulk forwards within 1e-4 of f64, 3 steps at
     65,536.  PNA: minibatch_lg (Reddit-scale source graph and its CSR on
-    the host, 5 steps each on a fresh 1,024-seed subgraph at fanout
+    the host, 3 steps each on a fresh 1,024-seed subgraph at fanout
     15-10), full_graph_sm and molecule, 5 steps each, forwards against
-    f64.  Every loss finite and falling; step ms and peak GB;
+    f64; then ogb_products (2,449,408 x 61,859,328 padded, built on the
+    host from ``--seed``) through the edge-chunked path: on a 4M-edge
+    subgraph the chunked path against the whole-edge path (loss, logits,
+    every gradient), the whole graph's forward against f64 (its device
+    time by kernel), 3 steps, with the chunk count, graph seconds and the
+    card's name and power limit.  Every loss finite and falling; step ms and peak GB;
 14. the ``kernels`` line (launch counts from the main path's run, and
     each path's own run beside them);
 15. ``{"ok": true, "device": {...}}``, the last line.
@@ -186,16 +191,15 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def launch_breakdown(torch, fn, reps: int = 10) -> dict:
-    """Device microseconds a call of ``fn`` spends in each kernel (and
-    memset), from torch.profiler's CUDA trace over ``reps`` calls."""
+def traced_us(torch, fn, reps: int):
+    """``fn()`` ``reps`` times under torch.profiler's CUDA trace: the last
+    call's result and the device microseconds a call spends in each
+    kernel (and memset)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            fn()
+            res = fn()
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
@@ -203,7 +207,15 @@ def launch_breakdown(torch, fn, reps: int = 10) -> dict:
             name = ev.key.replace("(anonymous namespace)::", "")
             name = name.split("(")[0]  # kernels that share it add up
             out[name] = out.get(name, 0.0) + ev.device_time_total / reps
-    return out
+    return res, out
+
+
+def launch_breakdown(torch, fn, reps: int = 10) -> dict:
+    """Device microseconds a warm call of ``fn`` spends in each kernel
+    (and memset), traced over ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    return traced_us(torch, fn, reps)[1]
 
 
 def check_ranking(name, got, want, tol=TOL) -> list:
@@ -267,12 +279,17 @@ def check_pool(name, got, want, tol=TOL) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_device(torch) -> str:
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+def _smi() -> str:
+    """nvidia-smi's name and power limit of the card."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def phase_device(torch) -> str:
+    name = torch.cuda.get_device_name(0)
+    smi = _smi()
     emit({"phase": "device", "name": name,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -1977,9 +1994,17 @@ def phase_lm(torch, seed: int) -> dict:
 
 RECSYS_SMOKE = False  # True: the archs' smoke configs and small graphs (a
 #                       CPU rehearsal)
+# pna_steps: full_graph_sm's and molecule's; minibatch_lg and ogb_products
+# take `steps`, so that their host-built graphs and ogb_products' seconds-long
+# step leave the phase as short as it can be
 RECSYS_TRAIN = dict(two_tower_batch=16_384, steps=3, pna_steps=5, lr=1e-4)
 # minibatch_lg's source graph: Reddit's nodes, edges, features and classes
 PNA_SOURCE = dict(n=232_965, e=114_615_892, d_feat=602, n_classes=41)
+# ogb_products' check of the edge-chunked path against the whole-edge path:
+# the first 4,000,000 edges among the first 409,600 nodes (a whole-edge step
+# peaks at about 50 GB there; over all 2.45M nodes its node side alone
+# would keep 88 GB)
+PNA_OGB_SUB = dict(nodes=409_600, edges=4_000_000)
 F64_RTOL = 1e-4   # a forward against the same function in f64, relative
 
 
@@ -2252,7 +2277,7 @@ def _ctr(torch, arch_id, seed, mesh, rules) -> dict:
 
 def _pna(torch, seed, rules) -> dict:
     """PNA at its published widths: minibatch_lg (the Reddit-scale source
-    graph on the host, its CSR, then RECSYS_TRAIN["pna_steps"] steps each
+    graph on the host, its CSR, then RECSYS_TRAIN["steps"] steps each
     on a fresh 1,024-seed subgraph at fanout 15-10), full_graph_sm and
     molecule; each part's first batch's forward against f64."""
     import dataclasses
@@ -2325,13 +2350,179 @@ def _pna(torch, seed, rules) -> dict:
         part["train"] = _train(torch,
                                lambda p, b, cfg=cfg: pna.loss_fn(p, b, cfg,
                                                                  rules),
-                               params, next_batch, RECSYS_TRAIN["pna_steps"])
+                               params, next_batch, RECSYS_TRAIN[
+                                   "steps" if shape == "minibatch_lg"
+                                   else "pna_steps"])
         part["seconds"] = time.perf_counter() - t0
         emit({"phase": "recsys_gnn", "part": f"pna {shape}", **part})
         out[shape] = part
         del g, params, next_batch
         _free(torch)
+    out["ogb_products"] = _pna_ogb(torch, seed, rules)
     return out
+
+
+def _pad_graph(g, n: int, e: int):
+    """``g`` padded to ``n`` nodes and ``e`` edges as the reference's cells
+    pad (``configs/gnn.py`` ``_round512``): the padded nodes are masked and
+    the padded edges, masked too, point at the sink, node ``n - 1``."""
+    from repro_torch.data.graph import GraphBatch
+
+    n0, e0 = g.feats.shape[0], g.edge_src.shape[0]
+    if not (n0 < n and e0 <= e):
+        raise ValueError(f"{n0} nodes / {e0} edges leave no sink in {n} / {e}")
+
+    def pad(a, size, fill):
+        out = np.full((size,) + a.shape[1:], fill, a.dtype)
+        out[:len(a)] = a
+        return out
+
+    return GraphBatch(
+        feats=pad(g.feats, n, 0.0), edge_src=pad(g.edge_src, e, n - 1),
+        edge_dst=pad(g.edge_dst, e, n - 1), labels=pad(g.labels, n, 0),
+        node_mask=pad(g.node_mask, n, False),
+        edge_mask=pad(g.edge_mask, e, False))
+
+
+def _pna_ogb(torch, seed, rules) -> dict:
+    """PNA's ogb_products cell on one card: the reference's seeded graph
+    at OGB ogbn-products' published size, padded to 512 multiples
+    (2,449,408 nodes, 61,859,328 edges), through the edge-chunked path.
+    First a subgraph (``PNA_OGB_SUB``): its forward on the CPU in f32
+    against the card's f64 (the CPU's own f32 error; the whole graph takes
+    minutes there), then the chunked path against the whole-edge path,
+    the loss, logits and every gradient, each within F64_RTOL plus twice
+    that error.  Then the whole graph: the forward against f64 on the card
+    within the same (its device time by kernel traced), and
+    RECSYS_TRAIN["steps"] AdamW steps."""
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs.base import named_leaves
+    from repro_torch.configs.gnn import GNN_SHAPES, _round512, graph_batch
+    from repro_torch.data.graph import GraphBatch, make_graph
+    from repro_torch.models import pna
+    from repro_torch.train.optimizer import loss_and_grads
+
+    s = GNN_SHAPES["ogb_products"]
+    cfg = _family_arch("pna")._cfg(s)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    budget = pna.EDGE_BUDGET
+    if RECSYS_SMOKE:   # small graphs, and a budget that still chunks them
+        src_n, src_e, sub_n, sub_e = 5_000, 120_000, 1_024, 8_000
+        budget = 4 << 20
+    else:
+        src_n, src_e = s["n"], s["e"]
+        sub_n, sub_e = PNA_OGB_SUB["nodes"], PNA_OGB_SUB["edges"]
+    t0 = time.perf_counter()
+    part = {"shape": "ogb_products",
+            "card": _smi() if DEVICE == "cuda" else DEVICE}
+    g = make_graph(src_n, src_e, s["d_feat"], n_classes=s["n_classes"],
+                   seed=seed)
+    g = _pad_graph(g, _round512(src_n), _round512(src_e))
+    part["graph_s"] = time.perf_counter() - t0
+    n, e = g.feats.shape[0], g.edge_src.shape[0]
+    chunk = pna.edge_chunk(e, cfg.d_hidden, cfg.dtype, budget)
+    if chunk is None:
+        raise AssertionError(f"ogb_products: {e} edges on the whole-edge "
+                             "path")
+    part.update(nodes=n, edges=e, d_feat=s["d_feat"],
+                layers=cfg.n_layers, d_hidden=cfg.d_hidden, chunk=chunk,
+                chunks=-(-e // chunk))
+    params = pna.init_params(cfg, seed, device=DEVICE)
+    p64 = pytree.tree_map(lambda t: t.double(), params)
+
+    # the subgraph: the first sub_e edges among the first sub_n nodes
+    keep = np.flatnonzero((g.edge_src < sub_n) & (g.edge_dst < sub_n))
+    if len(keep) < sub_e:
+        raise AssertionError(f"ogb_products: {len(keep)} edges among the "
+                             f"first {sub_n} nodes, fewer than {sub_e}")
+    keep = keep[:sub_e]
+    sub = _pad_graph(GraphBatch(
+        feats=g.feats[:sub_n], edge_src=g.edge_src[keep],
+        edge_dst=g.edge_dst[keep], labels=g.labels[:sub_n],
+        node_mask=g.node_mask[:sub_n], edge_mask=g.edge_mask[keep]),
+        _round512(sub_n + 1), _round512(sub_e))
+    del keep
+    sb = graph_batch(sub, DEVICE)
+    sp = {"nodes": sub.feats.shape[0], "edges": sub.edge_src.shape[0],
+          "chunk": pna.edge_chunk(sub.edge_src.shape[0], cfg.d_hidden,
+                                  cfg.dtype, budget)}
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        want = pna.forward(p64, sb, cfg64, rules, budget).cpu()
+        # the same function on the CPU's faster whole-edge path
+        cpu = pna.forward(pytree.tree_map(lambda t: t.cpu(), params),
+                          {k: v.cpu() for k, v in sb.items()}, cfg, rules,
+                          float("inf"))
+    sp["cpu_f32_rel_err"] = _rel_err(cpu, want)
+    sp["cpu_s"] = time.perf_counter() - t1
+    slack = 2.0 * sp["cpu_f32_rel_err"]
+    del want, cpu
+    runs = {}
+    for path, b_path in (("chunked", budget), ("whole_edge", float("inf"))):
+        _sync(torch)
+        _reset_peak(torch)
+        t1 = time.perf_counter()
+        loss, grads = loss_and_grads(
+            lambda p, b, bp=b_path: pna.loss_fn(p, b, cfg, rules, bp),
+            params, sb)
+        _sync(torch)
+        sp[f"{path}_ms"] = (time.perf_counter() - t1) * 1e3
+        sp[f"{path}_peak_gb"] = _peak_gb(torch)
+        with torch.no_grad():
+            logits = pna.forward(params, sb, cfg, rules, b_path)
+        runs[path] = [loss, logits] + pytree.tree_leaves(grads)
+        del loss, grads, logits
+        _free(torch)
+    names = ["loss", "logits"] + [k for k, _ in named_leaves(params)]
+    sp["rel_err"] = {}
+    for name, a, b in zip(names, runs["chunked"], runs["whole_edge"]):
+        err = _rel_err(a, b.double())
+        if not err <= F64_RTOL + slack:
+            raise AssertionError(f"pna ogb_products subgraph: {name}: "
+                                 f"chunked {err} from the whole-edge path, "
+                                 f"above {F64_RTOL} + {slack}")
+        sp["rel_err"][name] = err
+    part["subgraph"] = sp
+    del runs, sb, sub
+    _free(torch)
+
+    # the whole graph
+    fb = graph_batch(g, DEVICE)
+    del g
+    def fwd():
+        return pna.forward(params, fb, cfg, rules, budget)
+
+    _sync(torch)
+    _reset_peak(torch)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        if DEVICE == "cuda":   # traced: the device ms of its top kernels
+            got, us = traced_us(torch, fwd, 1)
+            ms = {}
+            for k, v in us.items():     # names cut short, their times added
+                ms[k[:80]] = ms.get(k[:80], 0.0) + v / 1e3
+            part["forward_device_ms"] = {"all": sum(ms.values()), **dict(
+                sorted(ms.items(), key=lambda kv: -kv[1])[:8])}
+        else:
+            got = fwd()
+        part["forward_ms"] = (time.perf_counter() - t1) * 1e3
+        want = pna.forward(p64, fb, cfg64, rules, budget)
+    part["forward_peak_gb"] = _peak_gb(torch)
+    part["f64_rel_err"] = _check_f64("pna ogb_products", got, want, slack)
+    part["f64_slack"] = slack
+    del got, want, p64
+    _free(torch)
+    part["train"] = _train(torch,
+                           lambda p, b: pna.loss_fn(p, b, cfg, rules, budget),
+                           params, lambda i: fb, RECSYS_TRAIN["steps"])
+    part["seconds"] = time.perf_counter() - t0
+    emit({"phase": "recsys_gnn", "part": "pna ogb_products", **part})
+    del params, fb
+    _free(torch)
+    return part
 
 
 def phase_recsys_gnn(torch, seed: int) -> dict:
@@ -2339,9 +2530,10 @@ def phase_recsys_gnn(torch, seed: int) -> dict:
     seeded from ``seed``: two-tower-retrieval (retrieval_cand through
     K1 -> K2 -> K3 against the plain step, serve_p99, training), bst and
     autoint (serve forwards, training), PNA (minibatch_lg through the
-    neighbour sampler, full_graph_sm, molecule).  dlrm-mlperf (96.1 GB of
-    tables) and PNA's ogb_products run only as dry-run cells.  The
-    phase's launches are those of the retrieval_cand step's one run."""
+    neighbour sampler, full_graph_sm, molecule on the whole-edge path,
+    ogb_products on the edge-chunked one).  dlrm-mlperf (96.1 GB of
+    tables) runs only as a dry-run cell.  The phase's launches are those
+    of the retrieval_cand step's one run."""
     from repro_torch.dist.sharding import default_rules
     from repro_torch.launch.mesh import make_local_mesh
 

@@ -11,6 +11,14 @@ The port of ``repro.configs.gnn``.  Shapes (assignment):
 shapes (the reference's ``pjit`` view); the dry run runs it on the meta
 device.  :meth:`PNAArch.step_cost` is the port's own count of one
 device's step (:func:`pna_step_cost`).
+
+ogb_products trains on one card: its 61,859,328 padded edges pass
+``models.pna.EDGE_BUDGET``, so ``pna.forward`` takes the edge-chunked
+path (33 chunks of 1,908,874 edges in f32, each layer recomputed under
+``torch.utils.checkpoint``, the messages recomputed bit-equal in the
+backward), where the whole-edge path would keep about 120 GB a layer.
+The other three cells take the whole-edge path.  On the card
+``index_add`` adds with atomics, so PNA's loss is not bit-reproducible.
 """
 
 from __future__ import annotations
