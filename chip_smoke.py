@@ -58,7 +58,26 @@ reference package.  Prints one JSON object per line, in order:
     ``flex_search`` cold and warm, the 64 engine requests, the two 1M
     queries, each time beside HopperBackend's, rankings against the
     oracle, its ``plan_cache`` stats, and no kernel launched;
-11. ``behavioral``: the paper's §4.4 suite (Tables 5-6) on the four
+11. ``filters_ingest_240k`` (the last user of the main path's SQLite
+    connection, so it may write to it): ``RetrievalService`` on
+    ``HopperBackend`` over the 240k corpus, every ranking against
+    fused-numpy on the same store, in five parts, each with its
+    launches: the composed query under four prefilters (one session's
+    50 rows, type 'file', one project, type 'assistant'), direct and
+    through the engine, the router's arms, mask build time and the
+    crossover it learns, and 32 requests with 32 filters as one engine
+    batch (one panel pass, one K1 launch); HYBRID_SEARCH, weighted and
+    RRF fusion, ``fuse:weighted,1.0`` bit-equal to the unfused query;
+    the 64 requests from 32 threads before and while 24,000 rows are
+    ingested, 4,096 INSERTed for the background vectorizer and 2,400
+    deleted, q/s and p50/p99, then the rankings on the mutated store and
+    the device cache per query before and after compaction; a journaled
+    service seeded from the same 240k rows, closed after 4,096
+    vectorized INSERTs and 100 deletes and reopened (recovery seconds,
+    records replayed, journal bytes), ranking as the never-closed one;
+    64 ``flex_search_async`` calls from one loop; with the card's name
+    and power limit;
+12. ``behavioral``: the paper's §4.4 suite (Tables 5-6) on the four
     BEIR-like datasets at their published sizes (3,633-57,638 rows), 180
     searches each on ``HopperBackend`` against fused-numpy: ids, scores,
     the figures at their printed precision, K3 on every diverse search,
@@ -66,7 +85,7 @@ reference package.  Prints one JSON object per line, in order:
     on a search's inputs at fiqa-like's 57,638 x 128 (K1 at B = 1, K2 at
     K = 512 and 2,048, K3 500 of 1,500) beside its plain version, its
     library call and its bound;
-12. ``lm``: the LM family at internlm2-1.8b's and granite-moe-1b-a400m's
+13. ``lm``: the LM family at internlm2-1.8b's and granite-moe-1b-a400m's
     published widths, seeded weights (no kernel of the port's runs
     here): ``LMDecodeEngine`` serving 8 requests (64-512 prompt tokens,
     32 new) through 4 slots, max_ctx 2048, in f32 with TF32 off, each
@@ -81,7 +100,7 @@ reference package.  Prints one JSON object per line, in order:
     loss falling; step ms, mfu (model flops over step time x 989
     TFLOP/s), the step split into gradients and AdamW; granite-moe 3
     steps with a finite loss;
-13. ``recsys_gnn``: the GNN and recsys families at their published
+14. ``recsys_gnn``: the GNN and recsys families at their published
     widths, weights and data seeded from ``--seed``.  two-tower-retrieval
     (12.9 GB of f32 tables): ``retrieval_cand`` through the arch's spec
     (the user tower, K1 over the item tower's 1,000,000 x 256 vectors with
@@ -102,9 +121,9 @@ reference package.  Prints one JSON object per line, in order:
     every gradient), the whole graph's forward against f64 (its device
     time by kernel), 3 steps, with the chunk count, graph seconds and the
     card's name and power limit.  Every loss finite and falling; step ms and peak GB;
-14. the ``kernels`` line (launch counts from the main path's run, and
+15. the ``kernels`` line (launch counts from the main path's run, and
     each path's own run beside them);
-15. ``{"ok": true, "device": {...}}``, the last line.
+16. ``{"ok": true, "device": {...}}``, the last line.
 
 Any failure raises.  Rankings must equal the oracle's id for id, scores
 agree to 1e-5; a candidate pool must equal the oracle's as a set except
@@ -1488,6 +1507,609 @@ def phase_torch_engine(torch, main_path, one_m) -> dict:
     return out
 
 
+# filters_ingest_240k: flexvec's filter, hybrid and write paths on the main
+# path's corpus.  Four Phase-1 filters of rising selectivity (one session's
+# 50 rows, type 'file' ~10%, one of PROJECTS' four ~25%, type 'assistant'
+# ~45%); the live ingest's load, its INSERTs paced under the vectorizer's
+# queue, which seals 64 rows a segment; the durable service's writes.
+FILTERS = (("session", "session_id = 's000123'"), ("file", "type = 'file'"),
+           ("project", "project = 'core'"),
+           ("assistant", "type = 'assistant'"))
+FILTER_REPEATS = 3       # direct passes of each filter: >= min_samples an arm
+LIVE_INGEST = dict(rows=24_000, batch=1_000, inserts=4_096, insert_rows=64,
+                   deletes=2_400)
+DURABLE = dict(inserts=4_096, deletes=100)
+HYBRID_KEYWORD = "server lifecycle"
+
+
+def _vec_ops(tokens, where=None) -> str:
+    """The SQL of one vec_ops query, with a Phase-1 prefilter."""
+    pre = ("" if where is None else ", 'SELECT id FROM chunks WHERE "
+           + where.replace("'", "''") + "'")
+    return f"SELECT v.id, v.score FROM vec_ops('{tokens}'{pre}) v LIMIT 10"
+
+
+def _oracle(cache, fn):
+    """``fn()`` with a fresh router on ``cache``: oracle passes stay out of
+    the served router's counters and timing samples (both arms rank the
+    same rows)."""
+    from repro_torch.core.backends import PrefilterRouter
+
+    saved, cache.prefilter = cache.prefilter, PrefilterRouter()
+    try:
+        return fn()
+    finally:
+        cache.prefilter = saved
+
+
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+def _insert_sql(rows) -> str:
+    """One ``INSERT INTO chunks`` statement for ``rows`` (no embeddings)."""
+    def lit(v):
+        if v is None:
+            return "NULL"
+        if isinstance(v, str):
+            return "'" + v.replace("'", "''") + "'"
+        return repr(v)
+
+    values = ", ".join("(" + ", ".join(lit(v) for v in r) + ")" for r in rows)
+    return ("INSERT INTO chunks (id, session_id, type, content, created_at, "
+            "position, project, tool_name, file, ext) VALUES " + values)
+
+
+def _paced_insert(svc, vec, stmt_rows, waited) -> None:
+    """``stmt_rows`` as one ``INSERT INTO chunks`` through ``svc``, sent
+    once the vectorizer's queue has room for them (the wait goes into
+    ``waited``)."""
+    t = time.perf_counter()
+    while len(vec.queue) + len(stmt_rows) > vec.queue.maxsize:
+        if time.perf_counter() - t > 120.0:
+            raise RuntimeError("the vectorizer queue never drained")
+        time.sleep(0.005)
+    waited.append(time.perf_counter() - t)
+    res = svc.flex_search(_insert_sql(stmt_rows))
+    if not res.ok:
+        raise RuntimeError(f"INSERT: {res.error}")
+
+
+def _gated(backend):
+    """``backend`` whose first scoring pass, once computed, waits for
+    ``release``: a request parked there lets a cohort gather behind it."""
+    import threading
+
+    class Gated(type(backend)):
+        def score_select(self, *args, **kwargs):
+            out = super().score_select(*args, **kwargs)
+            self.entered.set()
+            if not self.release.wait(timeout=60.0):
+                raise RuntimeError("gated pass never released")
+            return out
+
+    gate = Gated.__new__(Gated)
+    gate.__dict__.update(backend.__dict__)  # the same resident cache
+    gate.entered, gate.release = threading.Event(), threading.Event()
+    return gate
+
+
+def _rounds(engine, reqs, until, lat) -> int:
+    """Rounds of ``reqs`` from 32 threads through ``engine`` while
+    ``until()`` is false (at least one); each request's latency (ms) goes
+    into ``lat``.  Returns the requests served."""
+    def one(q):
+        t = time.perf_counter()
+        got = engine.search(q, 10)
+        lat.append((time.perf_counter() - t) * 1e3)
+        return got
+
+    n = 0
+    with cf.ThreadPoolExecutor(max_workers=32) as ex:
+        while True:
+            list(ex.map(one, reqs))
+            n += len(reqs)
+            if until():
+                return n
+
+
+def _latency(lat, n, wall) -> dict:
+    lat = sorted(lat)
+    return {"requests": n, "qps": n / wall,
+            "latency_p50_ms": lat[len(lat) // 2],
+            "latency_p99_ms": lat[int(len(lat) * 0.99)]}
+
+
+def _cache_per_query(svc, backend, sql) -> dict:
+    """The device cache's uploads, evictions and resident bytes over each
+    of two composed queries in a row, and the store's segments."""
+    out = {"segments": svc.cache.store.n_segments}
+    for key in ("first", "second"):
+        before = backend.device_cache_stats()
+        t0 = time.perf_counter()
+        res = svc.flex_search(sql)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not res.ok:
+            raise RuntimeError(f"flex_search: {res.error}")
+        after = backend.device_cache_stats()
+        out[key] = {"query_ms": ms,
+                    "uploads": after["uploads"] - before["uploads"],
+                    "evictions": after["evictions"] - before["evictions"],
+                    "entries": after["entries"],
+                    "resident_bytes": after["bytes"]}
+    return out
+
+
+def _filters_part(torch, svc, conn, backend, oracle_mz, sessions) -> dict:
+    """Part 1: the composed query under four prefilters, direct then through
+    the engine, then 32 requests with 32 filters as one engine batch."""
+    from repro_torch.serve.engine import BatchedRetrievalEngine
+
+    router = svc.cache.prefilter
+    out = {"direct": {}, "serving": {}}
+    before = _counts()
+    for name, where in FILTERS:
+        sql = _vec_ops(TOKENS, where)
+        row = {"candidates": conn.execute(
+            f"SELECT COUNT(*) FROM chunks WHERE {where}").fetchone()[0]}
+        row["selectivity"] = row["candidates"] / svc.cache.store.n_live
+        for rep in range(FILTER_REPEATS):
+            arms = (router.routed_masked, router.routed_gather)
+            c0 = _counts()
+            t0 = time.perf_counter()
+            res = svc.flex_search(sql)
+            ms = (time.perf_counter() - t0) * 1e3
+            if not res.ok:
+                raise RuntimeError(f"filtered flex_search: {res.error}")
+            row.setdefault("ms", []).append(ms)
+            row.setdefault("arm", []).append(
+                "masked" if router.routed_masked > arms[0] else "gather")
+            row.setdefault("launches", []).append(_delta(c0))
+        row["rows"] = len(res.rows)
+        row["ranking_near_ties"] = check_ranking(
+            f"filter {name}", res.rows,
+            _oracle(svc.cache, lambda: oracle_mz.execute(sql)[1]))
+        out["direct"][name] = row
+    # K3 on the session's <= 50 live rows: a pool far shorter than the
+    # 2048 bucket of `diverse pool:500`
+    session = out["direct"]["session"]
+    if any(c["mmr"] != 1 for c in session["launches"]):
+        raise AssertionError(f"the session-filtered diverse query did not "
+                             f"run K3 once: {session['launches']}")
+    out["router_after_direct"] = router.stats()
+    # the gather arm's scratch matrices stay in the device cache (keyed on
+    # each scratch array) until evicted: entries and bytes resident now
+    out["device_cache_after_direct"] = backend.device_cache_stats()
+    out["router_ms"] = {
+        "masked_ms_per_pass": router.masked_ms / max(router.masked_samples, 1),
+        "masked_ms_per_live_row": router.masked_ms / max(router.masked_rows,
+                                                         1),
+        "gather_ms_per_pass": router.gather_ms / max(router.gather_samples, 1),
+        "gather_ms_per_candidate": router.gather_ms / max(router.gather_rows,
+                                                          1)}
+    if min(router.masked_samples, router.gather_samples) < router.min_samples:
+        raise AssertionError(f"an arm has fewer than {router.min_samples} "
+                             f"samples: {router.stats()}")
+    out["effective_threshold"] = router.effective_threshold()
+    svc.serving()  # flex_search's vec_ops now go through its engine
+    for name, where in FILTERS:
+        sql = _vec_ops(TOKENS, where)
+        t0 = time.perf_counter()
+        res = svc.flex_search(sql)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not res.ok:
+            raise RuntimeError(f"filtered flex_search (engine): {res.error}")
+        out["serving"][name] = {
+            "ms": ms, "ranking_near_ties": check_ranking(
+                f"filter {name} (engine)", res.rows,
+                _oracle(svc.cache, lambda: oracle_mz.execute(sql)[1]))}
+
+    # 32 requests, 32 filters, one batch: parked behind a gated pass
+    wheres = ([f"session_id = '{s}'" for s in sessions[:22]]
+              + [f"type = '{t}'" for t in ("user_prompt", "assistant",
+                                           "tool_call", "file")]
+              + [f"project = '{p}'" for p in ("core", "website", "cli",
+                                              "infra")]
+              + ["type = 'file' AND project = 'cli'", None])
+    cands = [None if w is None else np.asarray(
+        [r[0] for r in conn.execute(f"SELECT id FROM chunks WHERE {w}")],
+        np.int64) for w in wheres]
+    reqs = [f"similar:{TOPICS[i % len(TOPICS)]} decay:30"
+            + (" diverse" if i % 2 else "") for i in range(len(wheres))]
+    gate = _gated(backend)
+    engine = BatchedRetrievalEngine(svc.cache, max_batch=32, now=NOW,
+                                    engine=gate)
+    try:
+        with cf.ThreadPoolExecutor(max_workers=33) as ex:
+            parked = ex.submit(engine.search, reqs[0], 10)
+            if not gate.entered.wait(60.0):
+                raise RuntimeError("the parked request never reached the card")
+            futs = [ex.submit(engine.search, q, 10, 60.0, candidate_ids=c)
+                    for q, c in zip(reqs, cands)]
+            t0 = time.perf_counter()
+            while engine.queue_depth < len(reqs):
+                if time.perf_counter() - t0 > 60.0:
+                    raise RuntimeError("the 32 requests never queued")
+                time.sleep(0.001)
+            panel0 = (router.routed_panel, svc.cache.fused.panel_batches)
+            c0 = _counts()
+            t0 = time.perf_counter()
+            gate.release.set()
+            parked.result(60.0)
+            got = [f.result(60.0) for f in futs]
+            batch_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        launches = _delta(c0)
+        batch = {"requests": len(reqs), "ms": batch_ms,
+                 "batches": engine.batches_served - 1,  # less the parked
+                 "routed_panel": router.routed_panel - panel0[0],
+                 "panel_batches": svc.cache.fused.panel_batches - panel0[1],
+                 "launches": launches}
+    finally:
+        gate.release.set()
+        engine.close()
+    if (batch["batches"], batch["routed_panel"], batch["panel_batches"],
+            launches["pem_score"]) != (1, len(reqs), 1, 1):
+        raise AssertionError(f"the 32-filter batch did not take one panel "
+                             f"pass and one K1 launch: {batch}")
+    near = []
+    for q, c, g in zip(reqs, cands, got):
+        want = _oracle(svc.cache, lambda: svc.cache.search(
+            q, c, now=NOW, engine="fused")[:10])
+        near += check_ranking(f"filter batch {q!r}", g, want)
+    batch["ranking_near_ties"] = near
+    out["filter_batch"] = batch
+    out["router"] = router.stats()
+    out["mask_build_ms"] = router.mask_build_ms
+    out["launches"] = _delta(before)
+    return out
+
+
+def _hybrid_part(svc, oracle_mz) -> dict:
+    """Part 2: HYBRID_SEARCH, weighted and RRF fusion through vec_ops, and
+    ``fuse:weighted,1.0`` bit-equal to the unfused query."""
+    plain = TOKENS.replace(" diverse", "")  # rrf refuses diverse plans
+    kw = f"keyword:{HYBRID_KEYWORD}"
+    queries = {
+        "hybrid_search": "SELECT id, score FROM HYBRID_SEARCH("
+                         f"'{HYBRID_KEYWORD} restart', 0.7) "
+                         "ORDER BY score DESC LIMIT 10",
+        "weighted_0.5": _vec_ops(f"{TOKENS} {kw} fuse:weighted,0.5"),
+        "rrf_60": _vec_ops(f"{plain} {kw} fuse:rrf,60"),
+        "weighted_1.0": _vec_ops(f"{TOKENS} {kw} fuse:weighted,1.0"),
+        "unfused": _vec_ops(TOKENS),
+    }
+    out = {}
+    before = _counts()
+    rows = {}
+    for name, sql in queries.items():
+        c0 = _counts()
+        t0 = time.perf_counter()
+        res = svc.flex_search(sql)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not res.ok:
+            raise RuntimeError(f"{name}: {res.error}")
+        rows[name] = res.rows
+        out[name] = {"ms": ms, "rows": len(res.rows),
+                     "launches": _delta(c0),
+                     "ranking_near_ties": check_ranking(
+                         f"hybrid {name}", res.rows, _oracle(
+                             svc.cache, lambda: oracle_mz.execute(sql)[1]))}
+    if rows["weighted_1.0"] != rows["unfused"]:
+        raise AssertionError("fuse:weighted,1.0 is not bit-equal to the "
+                             "unfused query on the card")
+    out["weighted_1.0_bit_equal"] = True
+    out["launches"] = _delta(before)
+    return out
+
+
+def _ingest_rows(n, seed, first_id):
+    """``n`` fresh chunk rows (the corpus generator's, seeded), ids from
+    ``first_id``."""
+    from repro_torch.data.corpus import generate_corpus
+
+    chunks = generate_corpus(n_chunks=n, n_sessions=max(1, n // 50),
+                             seed=seed, now=NOW)
+    return [(first_id + i,) + c.row()[1:] for i, c in enumerate(chunks)]
+
+
+def _live_ingest_part(torch, svc, backend, oracle_mz, sql, reqs) -> dict:
+    """Part 3: the 64 requests from 32 threads, before and while rows are
+    ingested, INSERTed for the vectorizer and deleted; then every ranking
+    on the mutated store against the oracle, and the device cache per
+    query before and after compaction."""
+    import threading
+
+    from repro_torch.core.segments import CompactionPolicy
+
+    cfg = LIVE_INGEST
+    engine = svc.serving()
+    vec = engine.vectorizer
+    out = {}
+    before = _counts()
+    lat = []
+    t0 = time.perf_counter()
+    n = _rounds(engine, reqs, lambda: True, lat)
+    out["before"] = _latency(lat, n, time.perf_counter() - t0)
+    rows = _ingest_rows(cfg["rows"] + cfg["inserts"], 1, MAIN_N)
+    direct, queued = rows[:cfg["rows"]], rows[cfg["rows"]:]
+    rng = np.random.default_rng(23)
+    doomed = rng.choice(MAIN_N, cfg["deletes"], replace=False)
+    rounds = cfg["rows"] // cfg["batch"]
+    stmts = [queued[i:i + cfg["insert_rows"]]
+             for i in range(0, len(queued), cfg["insert_rows"])]
+    done = threading.Event()
+    errors = []
+    waited = []
+
+    def writer():
+        try:
+            sent = 0
+            for r in range(rounds):
+                svc.ingest(direct[r * cfg["batch"]:(r + 1) * cfg["batch"]])
+                while sent < len(stmts) * (r + 1) // rounds:
+                    _paced_insert(svc, vec, stmts[sent], waited)
+                    sent += 1
+                part = doomed[r * len(doomed) // rounds:
+                              (r + 1) * len(doomed) // rounds]
+                if svc.delete(part.tolist()) != len(part):
+                    raise RuntimeError("a delete missed its rows")
+        except Exception as e:  # raised again below
+            errors.append(e)
+        finally:
+            done.set()
+
+    lat = []
+    t0 = time.perf_counter()
+    th = threading.Thread(target=writer)
+    th.start()
+    n = _rounds(engine, reqs, done.is_set, lat)
+    th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    out["during"] = _latency(lat, n, wall)
+    out["writer_s"] = wall
+    out["insert_wait_s"] = sum(waited)
+    t0 = time.perf_counter()
+    while vec.stats()["embedded"] < cfg["inserts"] or len(vec.queue):
+        if time.perf_counter() - t0 > 120.0:
+            raise RuntimeError(f"the vectorizer never drained: "
+                               f"{vec.stats()}")
+        time.sleep(0.01)
+    out["drain_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    st = svc.stats()
+    out["ingest"] = st["ingest"]
+    out["store"] = st["store"]
+    want_live = MAIN_N + cfg["rows"] + cfg["inserts"] - cfg["deletes"]
+    if svc.cache.store.n_live != want_live:
+        raise AssertionError(f"{svc.cache.store.n_live} live rows, "
+                             f"expected {want_live}")
+
+    def check(tag):
+        res = svc.flex_search(sql)
+        if not res.ok:
+            raise RuntimeError(f"composed query: {res.error}")
+        near = check_ranking(f"{tag} composed query", res.rows, _oracle(
+            svc.cache, lambda: oracle_mz.execute(sql)[1]))
+        with cf.ThreadPoolExecutor(max_workers=32) as ex:
+            got = list(ex.map(lambda q: engine.search(q, 10), reqs))
+        for q, g in zip(reqs, got):
+            near += check_ranking(f"{tag} {q!r}", g, _oracle(
+                svc.cache, lambda: svc.cache.search(q, now=NOW,
+                                                    engine="fused")[:10]))
+        return near
+
+    out["ranking_near_ties"] = check("mutated")
+    out["device_cache_per_query"] = _cache_per_query(svc, backend, sql)
+    lat = []
+    t0 = time.perf_counter()
+    n = _rounds(engine, reqs, lambda: True, lat)
+    out["after"] = _latency(lat, n, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    folded = svc.cache.store.maybe_compact(CompactionPolicy())
+    out["compaction"] = {"folded": folded, "s": time.perf_counter() - t0,
+                         "segments": svc.cache.store.n_segments}
+    out["device_cache_per_query_compacted"] = _cache_per_query(svc, backend,
+                                                               sql)
+    out["ranking_near_ties_compacted"] = check("compacted")
+    lat = []
+    t0 = time.perf_counter()
+    n = _rounds(engine, reqs, lambda: True, lat)
+    out["compacted"] = _latency(lat, n, time.perf_counter() - t0)
+    out["launches"] = _delta(before)
+    return out
+
+
+def _durable_part(conn_copy, emb, sql) -> dict:
+    """Part 4: a journaled service seeded from the 240k rows, vectorized
+    INSERTs and deletes, closed and reopened: its rankings equal the
+    never-closed service's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.backends import HopperBackend
+    from repro_torch.core.materializer import Materializer
+    from repro_torch.serve.retrieval import RetrievalService
+
+    path = Path(tempfile.mkdtemp(prefix="flexvec-journal-"))
+    out = {}
+    before = _counts()
+    try:
+        t0 = time.perf_counter()
+        svc = RetrievalService(conn_copy, dim=128, embedder=emb, now=NOW,
+                               engine=HopperBackend(DEVICE),
+                               store_path=path / "store")
+        out["open_s"] = time.perf_counter() - t0
+        engine = svc.serving()
+        vec = engine.vectorizer
+        rows = _ingest_rows(DURABLE["inserts"], 2, MAIN_N + 100_000)
+        waited = []
+        t0 = time.perf_counter()
+        for i in range(0, len(rows), LIVE_INGEST["insert_rows"]):
+            _paced_insert(svc, vec, rows[i:i + LIVE_INGEST["insert_rows"]],
+                          waited)
+        out["insert_s"] = time.perf_counter() - t0
+        out["insert_wait_s"] = sum(waited)
+        while vec.stats()["embedded"] < DURABLE["inserts"] or len(vec.queue):
+            if time.perf_counter() - t0 > 120.0:
+                raise RuntimeError("the durable vectorizer never drained")
+            time.sleep(0.01)
+        doomed = np.random.default_rng(29).choice(MAIN_N, DURABLE["deletes"],
+                                                  replace=False)
+        if svc.delete(doomed.tolist()) != DURABLE["deletes"]:
+            raise RuntimeError("a durable delete missed its rows")
+        want_sql = svc.flex_search(sql)
+        want_reqs = [engine.search(q, 10) for q in MIXED_REQUESTS]
+        st = svc.stats()
+        out["before_close"] = {"segments": st["store"]["segments"],
+                               "live": st["store"]["live"],
+                               "journal_bytes": st["ingest"]["journal_bytes"],
+                               "embedded": st["ingest"]["embedded"]}
+        t0 = time.perf_counter()
+        svc.close()
+        out["close_s"] = time.perf_counter() - t0
+        out["snapshot_bytes"] = sum(
+            f.stat().st_size for f in (path / "store").iterdir())
+        t0 = time.perf_counter()
+        svc2 = RetrievalService(conn_copy, dim=128, embedder=emb, now=NOW,
+                                engine=HopperBackend(DEVICE),
+                                store_path=path / "store")
+        out["recovery_s"] = time.perf_counter() - t0
+        try:
+            st = svc2.stats()
+            out["reopened"] = {
+                "segments": st["store"]["segments"],
+                "live": st["store"]["live"],
+                "recovered_records": st["ingest"]["recovered_records"],
+                "journal_bytes": st["ingest"]["journal_bytes"]}
+            got_sql = svc2.flex_search(sql)
+            engine2 = svc2.serving()
+            got_reqs = [engine2.search(q, 10) for q in MIXED_REQUESTS]
+            if got_sql.rows != want_sql.rows or got_reqs != want_reqs:
+                raise AssertionError("the reopened durable service ranks "
+                                     "unlike the never-closed one")
+            oracle = Materializer(conn_copy, svc2.cache, now=NOW,
+                                  engine="fused")
+            near = check_ranking("durable composed query", got_sql.rows,
+                                 oracle.execute(sql)[1])
+            for q, g in zip(MIXED_REQUESTS, got_reqs):
+                near += check_ranking(f"durable {q!r}", g, svc2.cache.search(
+                    q, now=NOW, engine="fused")[:10])
+            out["ranking_near_ties"] = near
+            out["equal_to_never_closed"] = True
+        finally:
+            svc2.close()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    out["launches"] = _delta(before)
+    return out
+
+
+def _async_part(svc, oracle_mz, reqs) -> dict:
+    """Part 5: 64 ``flex_search_async`` calls from one asyncio loop, equal to
+    the direct path on the same store."""
+    import asyncio
+
+    from repro_torch.core.materializer import Materializer
+
+    sqls = [_vec_ops(q, None if i % 4 else FILTERS[(i // 4) % 4][1])
+            for i, q in enumerate(reqs)]
+    before = _counts()
+
+    async def main():
+        return await asyncio.gather(*[svc.flex_search_async(s)
+                                      for s in sqls])
+
+    t0 = time.perf_counter()
+    got = asyncio.run(main())
+    wall = time.perf_counter() - t0
+    direct = Materializer(svc.conn, svc.cache, now=NOW, engine=svc.engine)
+    near = []
+    for s, g in zip(sqls, got):
+        if not g.ok:
+            raise RuntimeError(f"flex_search_async: {g.error}")
+        near += check_ranking(f"async {s[:60]!r}", g.rows,
+                              direct.execute(s)[1])
+        near += check_ranking(f"async oracle {s[:60]!r}", g.rows, _oracle(
+            svc.cache, lambda: oracle_mz.execute(s)[1]))
+    return {"calls": len(sqls), "wall_ms": wall * 1e3,
+            "qps": len(sqls) / wall, "ranking_near_ties": near,
+            "launches": _delta(before)}
+
+
+def phase_filters_ingest(torch, main_path) -> dict:
+    """``filters_ingest_240k``: flexvec's filter, hybrid and write paths on
+    the main path's 240k corpus (its SQLite connection, the last user of
+    it, so it may write), through ``RetrievalService`` on
+    ``HopperBackend``, every ranking held to fused-numpy on the same
+    store.  Five parts: (1) the composed query under four prefilters of
+    rising selectivity, direct and through the engine, then 32 requests
+    with 32 filters as one engine batch (one panel pass, one K1 launch),
+    with the router's arms, its mask build time and the crossover it
+    learned on the card; (2) HYBRID_SEARCH, weighted and RRF fusion, and
+    ``fuse:weighted,1.0`` bit-equal to the unfused query; (3) the 64
+    requests from 32 threads before and while 24,000 rows are ingested,
+    4,096 INSERTed for the vectorizer and 2,400 deleted, then every
+    ranking on the mutated store and the device cache per query before
+    and after compaction; (4) a journaled service seeded from the same
+    240k rows, closed after its writes and reopened; (5) 64
+    ``flex_search_async`` calls from one loop."""
+    from repro_torch.core.backends import HopperBackend
+    from repro_torch.core.materializer import Materializer
+    from repro_torch.serve.retrieval import RetrievalService
+
+    t_phase = time.perf_counter()
+    reuse = main_path["reuse"]
+    conn, emb, sql, reqs = (reuse["conn"], reuse["embedder"], reuse["sql"],
+                            reuse["requests"])
+    # the durable part's seed: the same 240k rows, before part 3 writes
+    conn_copy = sqlite3.connect(":memory:", check_same_thread=False)
+    conn.backup(conn_copy)
+    backend = HopperBackend(DEVICE)
+    t0 = time.perf_counter()
+    svc = RetrievalService(conn, dim=128, embedder=emb, now=NOW,
+                           engine=backend)
+    out = {"phase": "filters_ingest_240k", "chunks": MAIN_N,
+           "nvidia_smi": _smi(), "service_load_s": time.perf_counter() - t0}
+    oracle_mz = Materializer(conn, svc.cache, now=NOW, engine="fused")
+    sessions = [r[0] for r in conn.execute(
+        "SELECT DISTINCT session_id FROM chunks ORDER BY session_id "
+        "LIMIT 40 OFFSET 200")]
+    parts = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        res = parts[name] = fn(*args)
+        res["seconds"] = time.perf_counter() - t0
+        emit({"phase": "filters_ingest_240k", "part": name, **res})
+        _check_launched(f"filters_ingest_240k {name}", res["launches"],
+                        ("pem_score", "topk"))
+
+    _reset_counts()
+    try:
+        run("filters", _filters_part, torch, svc, conn, backend, oracle_mz,
+            sessions)
+        run("hybrid", _hybrid_part, svc, oracle_mz)
+        run("live_ingest", _live_ingest_part, torch, svc, backend, oracle_mz,
+            sql, reqs)
+        run("async", _async_part, svc, oracle_mz, reqs)
+    finally:
+        svc.close()
+    try:
+        run("durable", _durable_part, conn_copy, emb, sql)
+    finally:
+        conn_copy.close()
+    out["launches"] = _counts()
+    out["launches_by_part"] = {k: v["launches"] for k, v in parts.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    _check_launched("filters_ingest_240k", out["launches"],
+                    ("pem_score", "topk", "mmr"))
+    return out
+
+
 def phase_behavioral(torch) -> dict:
     """The paper's §4.4 behavioural suite (Tables 5-6,
     ``repro_torch.bench.behavioral``) at the four datasets' published
@@ -2590,6 +3212,8 @@ def main() -> None:
                  main_path["service_shard_group"]["launches"]}
     paths["torch_engine"] = phase_torch_engine(torch, main_path,
                                                one_m)["launches"]
+    paths["filters_ingest_240k"] = phase_filters_ingest(
+        torch, main_path)["launches"]
     main_path.pop("reuse")["conn"].close()
     del one_m  # the 1M store's device copies: the next phase's memory
     gc.collect()

@@ -325,13 +325,15 @@ class _DeviceMatrixMixin:
             del cache[id(matrix)]
 
     def device_cache_stats(self) -> Dict[str, int]:
-        cache = self.__dict__.get("_dev_cache", {})
+        # one C-level copy of the entries: a scoring pass on another
+        # thread may insert or evict while the bytes are summed
+        entries = list(self.__dict__.get("_dev_cache", {}).values())
         return {
-            "entries": len(cache),
+            "entries": len(entries),
             "uploads": self.uploads,
             "hits": self.dev_hits,
             "evictions": self.dev_evictions,
-            "bytes": sum(_entry_bytes(dev) for _, dev in cache.values()),
+            "bytes": sum(_entry_bytes(dev) for _, dev in entries),
         }
 
 
@@ -1507,8 +1509,9 @@ class PrefilterRouter:
 
     The router picks per query on REQUESTED selectivity — unique
     candidate count over live rows — against the crossover threshold.
-    ``mask_threshold`` seeds it statically (the measured crossover lives
-    in ``BENCH_pem.json``'s ``prefilter_backends`` scenario); with
+    ``mask_threshold`` seeds it statically (0.2, the reference's seed; the
+    crossover this router learns on an H100 is in PERF.md §5, measured by
+    ``chip_smoke.py``'s ``filters_ingest_240k`` phase); with
     ``adaptive`` on, the router then LEARNS the crossover from its own
     recorded timing samples: masked cost is bandwidth-bound in live rows
     (≈ ``a·n_live``), gather cost is linear in candidates

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 import re
 import sqlite3
 import time
@@ -210,8 +211,15 @@ class Materializer:
         now: Optional[float] = None,
         engine: Union[str, ExecutionBackend] = "reference",
         serving=None,
+        lock=None,
     ) -> None:
         self.conn = conn
+        # held around every use of ``conn``, never across a vector search:
+        # callers that share one connection between threads (the service's
+        # flex_search_async, its ingest and delete) pass the same lock, so
+        # two statements never interleave on it (Python's sqlite3 shares
+        # one prepared statement between threads running the same SQL)
+        self.lock = threading.RLock() if lock is None else lock
         self.cache = cache
         self.fts_table = fts_table
         self.now = now
@@ -236,18 +244,21 @@ class Materializer:
         all other statements must be read-only SELECT/WITH.
         """
         if _INSERT_CHUNKS_RE.match(sql):
-            return self._execute_ingest_insert(sql, params)
+            with self.lock:
+                return self._execute_ingest_insert(sql, params)
         if _DELETE_CHUNKS_RE.match(sql):
-            return self._execute_ingest_delete(sql, params)
+            with self.lock:
+                return self._execute_ingest_delete(sql, params)
         rewritten = self.rewrite(sql)
         if not _READONLY_RE.match(rewritten):
             raise MaterializeError("only read-only SELECT/WITH statements are allowed")
-        try:
-            cur = self.conn.execute(rewritten, params)
-        except sqlite3.Error as e:
-            raise MaterializeError(f"SQL error after rewrite: {e}") from e
-        cols = [d[0] for d in cur.description] if cur.description else []
-        return cols, cur.fetchall()
+        with self.lock:
+            try:
+                cur = self.conn.execute(rewritten, params)
+            except sqlite3.Error as e:
+                raise MaterializeError(f"SQL error after rewrite: {e}") from e
+            cols = [d[0] for d in cur.description] if cur.description else []
+            return cols, cur.fetchall()
 
     def rewrite(self, sql: str) -> str:
         """Phases 1+2: materialize every pseudo-call, rewrite references."""
@@ -277,7 +288,8 @@ class Materializer:
 
     def _fresh_table(self, prefix: str) -> str:
         name = f"_{prefix}_{next(_TEMP_IDS)}"
-        self.conn.execute(f"DROP TABLE IF EXISTS {name}")
+        with self.lock:
+            self.conn.execute(f"DROP TABLE IF EXISTS {name}")
         return name
 
     def _materialize_vec_ops(self, call: PseudoCall) -> str:
@@ -360,20 +372,23 @@ class Materializer:
         if prefilter_sql is not None and prefilter_sql.strip():
             if not _READONLY_RE.match(prefilter_sql):
                 raise MaterializeError(f"{kind} pre-filter must be a SELECT")
-            try:
-                rows = self.conn.execute(prefilter_sql).fetchall()
-            except sqlite3.Error as e:
-                raise MaterializeError(f"pre-filter SQL failed: {e}") from e
-            candidate_ids = [r[0] for r in rows]
-            if not candidate_ids:
-                # Paper §7: malformed pre-filters returning no rows are an
-                # agent error class; we surface an EMPTY result, not a crash.
-                table = self._fresh_table(kind)
-                self.conn.execute(
-                    f"CREATE TEMP TABLE {table} "
-                    "(id INTEGER PRIMARY KEY, score REAL, snippet TEXT)"
-                )
-                return table
+            with self.lock:
+                try:
+                    rows = self.conn.execute(prefilter_sql).fetchall()
+                except sqlite3.Error as e:
+                    raise MaterializeError(
+                        f"pre-filter SQL failed: {e}") from e
+                candidate_ids = [r[0] for r in rows]
+                if not candidate_ids:
+                    # Paper §7: malformed pre-filters returning no rows are
+                    # an agent error class; we surface an EMPTY result,
+                    # not a crash.
+                    table = self._fresh_table(kind)
+                    self.conn.execute(
+                        f"CREATE TEMP TABLE {table} "
+                        "(id INTEGER PRIMARY KEY, score REAL, snippet TEXT)"
+                    )
+                    return table
 
         try:
             plan = None
@@ -405,46 +420,51 @@ class Materializer:
                        for r, v in zip(results, norm)]
         cols = cols[:2] + ["snippet"] + cols[2:]
 
-        table = self._fresh_table(kind)
         decls = {"id": "INTEGER PRIMARY KEY", "score": "REAL",
                  "snippet": "TEXT", "cluster": "INTEGER", "central": "REAL"}
         col_sql = ", ".join(f"{c} {decls[c]}" for c in cols)
-        self.conn.execute(f"CREATE TEMP TABLE {table} ({col_sql})")
         ins_cols = [c for c in cols if c != "snippet"]
         ph = ",".join("?" * len(ins_cols))
-        self.conn.executemany(
-            f"INSERT OR REPLACE INTO {table} ({', '.join(ins_cols)}) "
-            f"VALUES ({ph})",
-            results,
-        )
-        # snippet via UPDATE join: immune to SQLite's host-parameter limit
-        self.conn.execute(
-            f"UPDATE {table} SET snippet = ("
-            f"SELECT substr(c.content, 1, 96) FROM _raw_chunks c "
-            f"WHERE c.id = {table}.id)"
-        )
+        with self.lock:
+            table = self._fresh_table(kind)
+            self.conn.execute(f"CREATE TEMP TABLE {table} ({col_sql})")
+            self.conn.executemany(
+                f"INSERT OR REPLACE INTO {table} ({', '.join(ins_cols)}) "
+                f"VALUES ({ph})",
+                results,
+            )
+            # snippet via UPDATE join: immune to SQLite's host-parameter
+            # limit
+            self.conn.execute(
+                f"UPDATE {table} SET snippet = ("
+                f"SELECT substr(c.content, 1, 96) FROM _raw_chunks c "
+                f"WHERE c.id = {table}.id)"
+            )
         return table
 
     def _materialize_keyword(self, call: PseudoCall) -> str:
         if len(call.args) != 1 or not isinstance(call.args[0], str):
             raise MaterializeError("keyword expects exactly one string argument")
         term = call.args[0]
-        table = self._fresh_table("kw")
-        self.conn.execute(
-            f"CREATE TEMP TABLE {table} "
-            "(id INTEGER PRIMARY KEY, score REAL, snippet TEXT)"
-        )
-        rows = self._fts_query(term)
-        if rows:
-            # unified contract: min-max normalized scores, same (id,
-            # score, snippet) shape as every other retrieval pseudo-call
-            norm = M.minmax_normalize(
-                np.asarray([r[1] for r in rows], np.float32))
-            rows = [(r[0], float(v), r[2]) for r, v in zip(rows, norm)]
-        self.conn.executemany(
-            f"INSERT OR REPLACE INTO {table} (id, score, snippet) VALUES (?, ?, ?)",
-            rows,
-        )
+        with self.lock:
+            table = self._fresh_table("kw")
+            self.conn.execute(
+                f"CREATE TEMP TABLE {table} "
+                "(id INTEGER PRIMARY KEY, score REAL, snippet TEXT)"
+            )
+            rows = self._fts_query(term)
+            if rows:
+                # unified contract: min-max normalized scores, same (id,
+                # score, snippet) shape as every other retrieval
+                # pseudo-call
+                norm = M.minmax_normalize(
+                    np.asarray([r[1] for r in rows], np.float32))
+                rows = [(r[0], float(v), r[2]) for r, v in zip(rows, norm)]
+            self.conn.executemany(
+                f"INSERT OR REPLACE INTO {table} (id, score, snippet) "
+                f"VALUES (?, ?, ?)",
+                rows,
+            )
         return table
 
     # -- delta ingest (INSERT/DELETE against the chunks view) ----------------
@@ -591,8 +611,9 @@ class Materializer:
         ``limit`` comes from the plan's ``pool:`` width on the hybrid path
         (formerly a hardcoded 500 that silently truncated wide pools).
         """
-        return fts_query(self.conn, term, limit=limit,
-                         fts_table=self.fts_table)
+        with self.lock:
+            return fts_query(self.conn, term, limit=limit,
+                             fts_table=self.fts_table)
 
     def _lexical_scores(self, term: str, limit: int) -> Tuple[np.ndarray, np.ndarray]:
         """``grammar.LexicalFn``: keyword text + pool width -> BM25 hits.

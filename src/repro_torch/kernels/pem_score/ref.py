@@ -18,11 +18,14 @@ import torch
 
 
 def _products(matrix, q_pre, q_sup):
-    # full f32 products on the card: TF32 keeps ~3 digits and would miss
-    # the 1e-5 tolerance this version is the yardstick for
-    torch.backends.cuda.matmul.allow_tf32 = False
-    m = matrix.to(torch.float32)
-    return m @ q_pre.to(torch.float32), m @ q_sup.to(torch.float32)
+    # f64 products rounded once to f32: a BLAS f32 product sums a row in an
+    # order that depends on how many rows share the call (its tile edges),
+    # so two equal rows in blocks of different length could score apart by
+    # a last bit and break a tie the wrong way; rounded from f64 they score
+    # the same wherever they sit, within 1e-5 of any f32 summation order
+    m = matrix.to(torch.float64)
+    return ((m @ q_pre.to(torch.float64)).to(torch.float32),
+            (m @ q_sup.to(torch.float64)).to(torch.float32))
 
 
 def pem_score_ref(

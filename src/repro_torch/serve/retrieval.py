@@ -104,6 +104,9 @@ class RetrievalService:
         self._serving = None  # lazy BatchedRetrievalEngine (see serving())
         self._serving_lock = threading.Lock()
         self._shard_group = None  # lazy ProcessGroup (see shard_group())
+        # every use of ``conn`` holds it: flex_search_async runs
+        # flex_search on worker threads over this one connection
+        self._conn_lock = threading.RLock()
 
     def flex_search(self, query: str, params: Sequence = ()) -> SearchResult:
         """SQL or @preset -> rows. The agent's single endpoint.
@@ -117,7 +120,8 @@ class RetrievalService:
         try:
             if query.strip().startswith("@"):
                 name = query.strip().split()[0]
-                out = run_preset(self.conn, name)
+                with self._conn_lock:
+                    out = run_preset(self.conn, name)
                 rows: List[tuple] = []
                 cols = ["section", "data"]
                 for key, (c, r) in out.items():
@@ -125,7 +129,8 @@ class RetrievalService:
                 return SearchResult(True, cols, rows,
                                     latency_ms=(time.time() - t0) * 1e3)
             mz = Materializer(self.conn, self.cache, now=self.now,
-                              engine=self.engine, serving=self._serving)
+                              engine=self.engine, serving=self._serving,
+                              lock=self._conn_lock)
             cols, rows = mz.execute(query, params)
             return SearchResult(True, cols, rows,
                                 latency_ms=(time.time() - t0) * 1e3)
@@ -174,7 +179,8 @@ class RetrievalService:
         text + pool width -> (ids desc-by-bm25, min-max scores)."""
         from repro_torch.core.materializer import fts_query
 
-        rows = fts_query(self.conn, term, limit=limit)
+        with self._conn_lock:
+            rows = fts_query(self.conn, term, limit=limit)
         if not rows:
             return (np.empty(0, dtype=np.int64),
                     np.empty(0, dtype=np.float32))
@@ -374,36 +380,39 @@ class RetrievalService:
         rows = list(rows)
         if not rows:
             return 0
-        # validate BEFORE touching SQLite: a duplicate live id would
-        # otherwise REPLACE the row, desyncing FTS and the vector store
-        dupes = [int(r[0]) for r in rows if int(r[0]) in self.cache.store]
-        if dupes:
-            raise ValueError(
-                f"ingest: ids already live in the corpus: {dupes[:10]}"
-                + ("..." if len(dupes) > 10 else "")
-            )
-        if embeddings is None:
-            embeddings = np.stack(
-                [self.embedder(r[3] or "") for r in rows]
-            ).astype(np.float32)
-        insert_chunks(self.conn, rows, embeddings)
-        self.cache.ingest(
-            [r[0] for r in rows], embeddings,
-            [r[4] or 0.0 for r in rows],
-        )
-        if self._shard_group is not None:
-            self._shard_group.append(
+        with self._conn_lock:
+            # validate BEFORE touching SQLite: a duplicate live id would
+            # otherwise REPLACE the row, desyncing FTS and the vector store
+            dupes = [int(r[0]) for r in rows
+                     if int(r[0]) in self.cache.store]
+            if dupes:
+                raise ValueError(
+                    f"ingest: ids already live in the corpus: {dupes[:10]}"
+                    + ("..." if len(dupes) > 10 else "")
+                )
+            if embeddings is None:
+                embeddings = np.stack(
+                    [self.embedder(r[3] or "") for r in rows]
+                ).astype(np.float32)
+            insert_chunks(self.conn, rows, embeddings)
+            self.cache.ingest(
                 [r[0] for r in rows], embeddings,
-                [r[4] or 0.0 for r in rows])
+                [r[4] or 0.0 for r in rows],
+            )
+            if self._shard_group is not None:
+                self._shard_group.append(
+                    [r[0] for r in rows], embeddings,
+                    [r[4] or 0.0 for r in rows])
         return len(rows)
 
     def delete(self, ids: Sequence[int]) -> int:
         """Remove chunks from SQLite + FTS, tombstone them in the cache."""
-        removed = delete_chunks(self.conn, ids)
-        if removed:
-            self.cache.delete(removed)
-            if self._shard_group is not None:
-                self._shard_group.delete(removed)
+        with self._conn_lock:
+            removed = delete_chunks(self.conn, ids)
+            if removed:
+                self.cache.delete(removed)
+                if self._shard_group is not None:
+                    self._shard_group.delete(removed)
         return len(removed)
 
     def stats(self) -> Dict[str, Any]:

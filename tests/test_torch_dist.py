@@ -11,7 +11,10 @@ planted across every shard boundary (one-hot rows with equal ages: their
 scores tie in any order of summation), a shard with no live row, (N,) and
 (N, B) masks, a hybrid bias, and diverse plans through the payload merge
 and the MMR kernel's plain version at lambda 0, 0.3, 0.7 and 1.  The
-collective form runs on 2 and 4 gloo CPU ranks in a subprocess.
+collective form runs on 2 and 4 gloo CPU ranks in a subprocess.  Rows
+repeated three times tie exactly whatever shard block holds them, so MMR
+picks the first occurrence at S = 1..4, as the reference's sharded backend
+does over as many forced host devices (also in a subprocess).
 """
 
 import dataclasses
@@ -378,3 +381,79 @@ def test_sharded_backend_keeps_its_blocks_resident():
     assert st["bytes"] == mat.nbytes
     for idx, vals in out:
         assert idx.max() < 10 and np.isfinite(vals).all()
+
+
+# -- duplicate rows across shard blocks ---------------------------------------
+
+_TIED_SHARDS = textwrap.dedent("""
+    import sys
+
+    import numpy as np
+
+    from repro.core import modulations as M
+    from repro.core.backends import get_backend
+    from repro.embed import HashEmbedder
+    import jax
+
+    assert len(jax.devices()) == int(sys.argv[2])
+    data = np.load(sys.argv[1])
+    plan = M.ModulationPlan(query=M.l2_normalize(HashEmbedder(32)("tied query")),
+                            diverse=M.DiverseSpec(lam=0.5), pool=8)
+    (idx, vals), = get_backend("sharded").score_select(
+        data["mat"], data["days"], [plan], [8])
+    np.savez(sys.argv[3], i=np.asarray(idx), v=np.asarray(vals))
+""")
+
+
+def _tied_rows():
+    """8 unit rows, each repeated 3 times: every score ties 3 ways."""
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((8, D)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    mat = np.concatenate([base, base, base])
+    return mat, np.zeros(mat.shape[0], np.float32)
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_sharded_duplicate_rows_tie_to_the_first(tmp_path, shards):
+    """Equal rows score equal whatever shard block holds them, so MMR's
+    exact ties go to the first occurrence at every shard count: the
+    reference's ``ShardedBackend`` on ``shards`` forced host devices (in a
+    subprocess, where the device count can be set) and the port's on
+    ``["cpu"] * shards`` pick the same rows."""
+    mat, days = _tied_rows()
+    data = tmp_path / "tied.npz"
+    np.savez(data, mat=mat, days=days)
+    script = tmp_path / "tied.py"
+    script.write_text(_TIED_SHARDS)
+    out = tmp_path / "out.npz"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count="
+               f"{shards}")
+    r = subprocess.run([sys.executable, str(script), str(data), str(shards),
+                        str(out)], env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    want = np.load(out)
+    plan = TM.ModulationPlan(query=TM.l2_normalize(THash(D)("tied query")),
+                             diverse=TM.DiverseSpec(lam=0.5), pool=8)
+    (idx, vals), = TB.ShardedBackend(["cpu"] * shards).score_select(
+        mat, days, [plan], [8])
+    assert list(idx) == [5, 2, 3, 4, 0, 1, 7, 6]
+    np.testing.assert_array_equal(idx, want["i"])
+    np.testing.assert_allclose(vals, want["v"], atol=TOL)
+
+
+@pytest.mark.parametrize("b", [1, 3, 32])
+def test_plain_scores_of_a_row_do_not_depend_on_its_block(b):
+    """The plain K1 gives a row the same bits in a block of any length."""
+    mat, days = _tied_rows()
+    q = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (D, b)).astype(np.float32))
+    whole = pem_score(torch.from_numpy(mat), q, -q, torch.from_numpy(days))
+    for lo, hi in ((0, 6), (6, 12), (12, 18), (18, 24), (3, 4), (11, 24)):
+        part = pem_score(torch.from_numpy(mat[lo:hi]), q, -q,
+                         torch.from_numpy(days[lo:hi]))
+        np.testing.assert_array_equal(part.numpy(), whole[lo:hi].numpy())
+    np.testing.assert_array_equal(whole[:8].numpy(), whole[8:16].numpy())
+    np.testing.assert_array_equal(whole[:8].numpy(), whole[16:].numpy())

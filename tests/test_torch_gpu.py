@@ -10,7 +10,11 @@ Shapes are the main path's: the 240k x 128 production corpus with B in
 {1, 32}, the pow2 pool width 2048 of ``diverse pool:500``, and its MMR
 over 1500 candidates with k = 500.  Scores agree to 1e-5 in f32 (2e-2
 with a bf16 corpus) with the plain version on the same card; selections
-agree exactly.  Imports no JAX.
+agree exactly.  The filtered, hybrid and write paths' inputs are here
+too: equal rows scoring bit-equal in any block, a masked (N, B) filter
+panel, a bias panel, a store of 40 delta segments (more than the device
+cache holds) and a diverse pool shorter than its bucket, each against
+``HopperBackend("cpu")``.  Imports no JAX.
 """
 
 import dataclasses
@@ -942,3 +946,189 @@ def test_shard_group_one_worker_a_card(four_cards):
                     np.array([v for _, v in want], np.float32))
             else:
                 _assert_same_mmr_ranking(got, want)
+
+
+# -- filtered, hybrid and delta-segment inputs --------------------------------
+
+
+def test_pem_score_duplicate_rows_bit_equal_in_any_block(cuda):
+    """Equal rows score bit-equal on the card whatever block holds them and
+    wherever they sit in it: in blocks of 6, 1, 13 and 24 rows, and
+    planted at scattered positions of a 50,001-row corpus split into
+    shard blocks of unequal length (the sharded path's tie order rests
+    on this)."""
+    rng = np.random.default_rng(5)
+    d, b = 128, 5
+    base = rng.standard_normal((8, d)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    mat = torch.from_numpy(np.concatenate([base] * 3)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((d, b)).astype(np.float32)
+                         ).to(cuda)
+    qs = -0.3 * q
+    days = torch.full((24,), 7.0, device=cuda)
+    hl = torch.tensor([7.0, 30.0, float("inf"), 14.0, 90.0], device=cuda)
+    whole = pem_score(mat, q, qs, days_ago=days, half_lives=hl)
+    for lo, hi in ((0, 6), (6, 12), (12, 18), (18, 24), (3, 4), (11, 24)):
+        # copies: TMA reads the rows and ages from 16-byte aligned starts
+        part = pem_score(mat[lo:hi].clone(), q, qs,
+                         days_ago=days[lo:hi].clone(), half_lives=hl)
+        assert torch.equal(part, whole[lo:hi])
+    assert torch.equal(whole[:8], whole[8:16])
+    assert torch.equal(whole[:8], whole[16:])
+
+    n = 50_001
+    big = rng.standard_normal((n, d)).astype(np.float32)
+    big /= np.linalg.norm(big, axis=1, keepdims=True)
+    spots = [0, 97, 12_497, 25_002, 37_500, 49_993]  # two straddle a cut
+    for s in spots:
+        big[s:s + 8] = base
+    big_t = torch.from_numpy(big).to(cuda)
+    ages = torch.full((n,), 7.0, device=cuda)
+    full = pem_score(big_t, q, qs, days_ago=ages, half_lives=hl)
+    want = whole[:8]
+    for s in spots:
+        assert torch.equal(full[s:s + 8], want)
+    for cuts in ((0, 12_501, 25_002, 37_503, n), (0, 9, 30_000, n)):
+        for lo, hi in zip(cuts, cuts[1:]):
+            part = pem_score(big_t[lo:hi].clone(), q, qs,
+                             days_ago=ages[lo:hi].clone(), half_lives=hl)
+            assert torch.equal(part, full[lo:hi])
+
+
+def _filter_sets(n, seed):
+    """Candidate sets of every selectivity, one a plan: a sharp 40-row
+    set, 10%, 45% with ids the store never saw, none (unfiltered)."""
+    rng = np.random.default_rng(seed)
+    return [np.sort(rng.choice(n, 40, replace=False)),
+            np.flatnonzero(rng.random(n) < 0.10),
+            np.concatenate([np.flatnonzero(rng.random(n) < 0.45),
+                            [n + 5, n + 9]]),
+            None]
+
+
+def test_hopper_masked_filter_panel_equals_plain(cuda):
+    """A heterogeneous-filter cohort through one (N, B) mask panel: one K1
+    launch a segment, rankings equal to the plain chain's."""
+    from repro_torch.core.backends import (HopperBackend,
+                                           score_select_filter_panel)
+
+    store, plans, ks, now = _tombstoned_store_and_plans()
+    plans = plans + plans[:1]
+    ks = ks + [20]
+    sets = _filter_sets(30_000, 3)
+    before = pem_score.launches
+    got = score_select_filter_panel(HopperBackend("cuda"), store,
+                                    store.segments, plans, ks, sets, now=now)
+    assert pem_score.launches - before == store.n_segments
+    want = score_select_filter_panel(HopperBackend("cpu"), store,
+                                     store.segments, plans, ks, sets,
+                                     now=now)
+    for (gi, gv), (wi, wv) in zip(got, want):
+        _assert_same_ranking(gi, gv, wi, wv)
+
+
+def test_hopper_hybrid_bias_panel_equals_plain(cuda):
+    """Plans fusing different keyword legs in one batch: the (N, B) bias
+    panel rides the device panel before the mask and top-k."""
+    from repro_torch.core.backends import (HopperBackend,
+                                           fusion_bias_arrays,
+                                           score_select_segments)
+    from repro_torch.core.grammar import parse
+    from repro_torch.embed import HashEmbedder
+
+    store, _, _, now = _tombstoned_store_and_plans()
+    rng = np.random.default_rng(8)
+
+    def lexical(seed):
+        ids = np.random.default_rng(seed).choice(30_000, 300, replace=False)
+        scores = np.sort(rng.random(300).astype(np.float32))[::-1]
+        return lambda text, pool: (ids[:pool].astype(np.int64),
+                                   scores[:pool].copy())
+
+    emb = HashEmbedder(128)
+    plans = [parse(t, emb, lexical_fn=lexical(s)) for s, t in enumerate((
+        "similar:server lifecycle keyword:restart fuse:weighted,0.6",
+        "similar:auth token decay:30 keyword:token fuse:weighted,0.3 pool:200",
+        "similar:rendering pipeline keyword:frame fuse:weighted,0.8 diverse",
+        "similar:database migration decay:14"))]
+    ks = [20, 50, 10, 15]
+    bias = fusion_bias_arrays(store, store.segments, plans)
+    assert bias is not None and all(b.ndim == 2 for b in bias if b is not None)
+    got = score_select_segments(HopperBackend("cuda"), store.segments,
+                                plans, ks, now=now, score_bias=bias)
+    want = score_select_segments(HopperBackend("cpu"), store.segments, plans,
+                                 ks, now=now, score_bias=bias)
+    for (gi, gv), (wi, wv) in zip(got, want):
+        _assert_same_ranking(gi, gv, wi, wv)
+
+
+def test_hopper_forty_delta_segments_past_the_device_cache(cuda):
+    """A store of 40 delta segments, more than the device cache's 32
+    entries: every query walks them all (each misses and uploads again),
+    and rankings stay equal to the plain chain's."""
+    from repro_torch.core.backends import HopperBackend
+    from repro_torch.core.grammar import parse
+    from repro_torch.core.segments import store_from_arrays
+    from repro_torch.core.vectorcache import VectorCache
+    from repro_torch.embed import HashEmbedder
+
+    rng = np.random.default_rng(40)
+    n, d, now = 40 * 256, 128, 1_770_000_000.0
+    mat = rng.standard_normal((n, d)).astype(np.float32)
+    mat /= np.linalg.norm(mat, axis=1, keepdims=True)
+    ts = now - rng.uniform(0, 90, n) * 86400.0
+    live = rng.random(n) > 0.05
+    store = store_from_arrays([
+        {"ids": np.arange(a, a + 256), "matrix": mat[a:a + 256],
+         "timestamps": ts[a:a + 256], "live_mask": live[a:a + 256]}
+        for a in range(0, n, 256)])
+    assert store.n_segments == 40
+    cache = VectorCache(store=store, embed_fn=HashEmbedder(d))
+    backend = HopperBackend("cuda")
+    tokens = ("similar:how the system works suppress:website design "
+              "decay:30 diverse pool:100")
+    for _ in range(2):
+        before = (pem_score.launches, backend.uploads)
+        got = cache.search(tokens, now=now, engine=backend)
+        assert pem_score.launches - before[0] == 40
+    # the LRU cycle misses on every segment, and the diverse pool's
+    # gather uploads again the segments its rows lie in
+    assert backend.uploads - before[1] >= 40
+    assert backend.device_cache_stats()["entries"] == 32
+    want = cache.search(tokens, now=now, engine=HopperBackend("cpu"))
+    oracle = cache.search(tokens, now=now, engine="fused")
+    _assert_same_ranking(np.array([i for i, _ in got]),
+                         np.array([v for _, v in got]),
+                         np.array([i for i, _ in want]),
+                         np.array([v for _, v in want]))
+    assert [i for i, _ in want] == [i for i, _ in oracle]
+
+
+def test_hopper_diverse_query_on_a_pool_shorter_than_its_bucket(cuda):
+    """A sharp filter leaves 37 live rows for a ``diverse pool:500`` query:
+    K3 runs on a pool far shorter than its 2048 bucket, through both
+    router arms, equal to the plain chain."""
+    from repro_torch.core.backends import HopperBackend, PrefilterRouter
+    from repro_torch.core.vectorcache import VectorCache
+    from repro_torch.embed import HashEmbedder
+
+    store, _, _, now = _tombstoned_store_and_plans()
+    rng = np.random.default_rng(37)
+    live_ids = store.segments[0].ids[store.segments[0].live_mask]
+    cands = np.sort(rng.choice(live_ids, 37, replace=False))
+    tokens = ("similar:how the system works decay:30 diverse pool:500")
+    for threshold in (0.0, 2.0):  # the masked arm, then the gather arm
+        got = {}
+        for dev in ("cuda", "cpu"):
+            vc = VectorCache(store=store, embed_fn=HashEmbedder(128),
+                             prefilter=PrefilterRouter(
+                                 mask_threshold=threshold, adaptive=False))
+            before = mmr_select.launches
+            got[dev] = vc.search(tokens, cands, now=now,
+                                 engine=HopperBackend(dev))
+            if dev == "cuda":
+                assert mmr_select.launches - before == 1
+        assert len(got["cuda"]) == 37
+        _assert_same_ranking(*(np.array(c) for r in (got["cuda"],
+                                                      got["cpu"])
+                               for c in zip(*r)))
