@@ -76,7 +76,9 @@ reference package.  Prints one JSON object per line, in order:
     vectorized INSERTs and 100 deletes and reopened (recovery seconds,
     records replayed, journal bytes), ranking as the never-closed one;
     64 ``flex_search_async`` calls from one loop; with the card's name
-    and power limit;
+    and power limit; K1 alone on the 32-filter batch's (N, 32) panel and
+    K2 alone on it -inf-masked, each beside its plain version, its
+    library call and its bound;
 12. ``behavioral``: the paper's §4.4 suite (Tables 5-6) on the four
     BEIR-like datasets at their published sizes (3,633-57,638 rows), 180
     searches each on ``HopperBackend`` against fused-numpy: ids, scores,
@@ -112,7 +114,16 @@ reference package.  Prints one JSON object per line, in order:
     f64); 3 AdamW steps at batch 16,384 (train_batch's 65,536 cut: the
     in-batch logits grow as B^2) on the full tables.  bst and autoint:
     serve_p99 and serve_bulk forwards within 1e-4 of f64, 3 steps at
-    65,536.  PNA: minibatch_lg (Reddit-scale source graph and its CSR on
+    65,536.  dlrm-mlperf: serve_p99 and serve_bulk through the arch's
+    serve step over its tables row-sharded four ways as
+    ``dlrm_shardings`` lays them out (one block a card where there are
+    four cards, at the published 96.14 GB; else four blocks on one card
+    with every table's padded rows capped at 2^24, 45.03 GB, the cut
+    printed under ``reduced``), the logits bit-equal to the unsharded
+    forward over compact tables of the batch's rows and within 1e-4 of
+    it in f64; ms (median of 5), a call's host and device ms and
+    launches, rows routed a shard, bytes a shard and a card, peak GB a
+    card.  PNA: minibatch_lg (Reddit-scale source graph and its CSR on
     the host, 3 steps each on a fresh 1,024-seed subgraph at fanout
     15-10), full_graph_sm and molecule, 5 steps each, forwards against
     f64; then ogb_products (2,449,408 x 61,859,328 padded, built on the
@@ -877,9 +888,9 @@ def _check_launched(path: str, counts: dict, kernels) -> None:
 
 def _shard_devices(torch) -> list:
     """Four shards: one a card where there are four, else four on one."""
-    if DEVICE == "cuda" and torch.cuda.device_count() >= 4:
-        return [f"cuda:{s}" for s in range(4)]
-    return [DEVICE if DEVICE == "cpu" else "cuda:0"] * 4
+    from repro_torch.launch.mesh import local_model_devices
+
+    return local_model_devices(4, DEVICE)
 
 
 def phase_sharded_1m(torch, one_m) -> dict:
@@ -1759,10 +1770,98 @@ def _filters_part(torch, svc, conn, backend, oracle_mz, sessions) -> dict:
         near += check_ranking(f"filter batch {q!r}", g, want)
     batch["ranking_near_ties"] = near
     out["filter_batch"] = batch
+    out["kernels_alone"] = _uncounted(
+        lambda: _filter_panel_kernels(torch, svc, backend, reqs, cands))
     out["router"] = router.stats()
     out["mask_build_ms"] = router.mask_build_ms
     out["launches"] = _delta(before)
     return out
+
+
+def _uncounted(fn):
+    """``fn()`` with the kernels' launch counts put back as they were after
+    it: launches made to time a kernel beside its plain version are no
+    path's."""
+    from repro_torch.kernels.mmr.ops import mmr_select
+    from repro_torch.kernels.pem_score.ops import pem_score
+    from repro_torch.kernels.topk.ops import topk
+
+    before = _counts()
+    try:
+        return fn()
+    finally:
+        pem_score.launches = before["pem_score"]
+        topk.launches = before["topk"]
+        mmr_select.launches = before["mmr"]
+
+
+def _filter_panel_kernels(torch, svc, backend, reqs, cands) -> dict:
+    """K1 and K2 alone on the 32-filter batch's inputs over the base
+    segment: K1 scoring the (N, 32) panel that the filters then mask, K2
+    over the -inf-masked (32, N) panel at the batch's selection width;
+    each against its plain version, its library call (``matmul`` and the
+    decay epilogue; ``torch.topk``) and its bound from the shared count."""
+    from repro_torch.configs.flexvec import pem_score_work, topk_work
+    from repro_torch.core import modulations as M
+    from repro_torch.core.backends import (PlanStructure, _half_lives,
+                                           selection_width)
+    from repro_torch.core.grammar import parse
+    from repro_torch.kernels.pem_score.ops import pem_score
+    from repro_torch.kernels.pem_score.ref import (decay_factors,
+                                                   pem_score_days_ref)
+    from repro_torch.kernels.topk.ops import topk
+    from repro_torch.kernels.topk.ref import topk_ref
+
+    dev = torch.device(DEVICE)
+    seg = svc.cache.store.segments[0]
+    plans = [parse(q, svc.embedder) for q in reqs]
+    n, d = seg.matrix.shape
+    b = len(plans)
+    masks, _ = svc.cache.store.candidate_mask_panel(cands, [seg])
+    mask = torch.as_tensor(masks[0], device=dev)          # (N, B)
+    m = backend._device_matrix(seg.matrix)
+    qp, qs = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in M.fold_plans(plans))
+    days = torch.as_tensor(seg.days_ago(NOW), device=dev)
+    hl = torch.as_tensor(_half_lives(plans), dtype=torch.float32, device=dev)
+    width = min(PlanStructure.of(plans, [selection_width(p, 10, n)
+                                         for p in plans], n).width, n)
+    panel = torch.empty((b, n), device=dev)
+
+    def k1():
+        return pem_score(m, qp, qs, days_ago=days, half_lives=hl,
+                         out=panel.T)
+
+    def k1_library():
+        both = m @ torch.cat([qp, qs], dim=1)
+        return decay_factors(days, hl) * both[:, :b] + both[:, b:]
+
+    k1()
+    want = pem_score_days_ref(m, qp, qs, days, hl)
+    k1_err = float((panel.T - want).abs().max())
+    if not k1_err <= TOL:
+        raise AssertionError(f"filter panel pem_score: max error {k1_err}")
+    masked = torch.where(mask.T, panel, float("-inf"))
+    v, i = topk(masked, width)
+    vr, ir = topk_ref(masked, width)
+    if not (torch.equal(i, ir) and torch.equal(v, vr)):
+        raise AssertionError("filter panel topk: differs from plain")
+    rows = {}
+    for name, err, fns, work in (
+            ("pem_score", k1_err,
+             (k1, lambda: pem_score_days_ref(m, qp, qs, days, hl),
+              k1_library), pem_score_work(n, d, b, m.element_size())),
+            ("topk", 0.0,
+             (lambda: topk(masked, width), lambda: topk_ref(masked, width),
+              lambda: torch.topk(masked, width, dim=1)),
+             topk_work(b, n, width))):
+        t, by = bound_ms(work)
+        ms, plain, lib = (time_ms(torch, fn, 20) for fn in fns)
+        rows[name] = {"n": n, "d": d, "b": b, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain, "library_ms": lib, "bound_ms": t,
+                      "bound_by": by}
+    rows["topk"].update(k=width, live=int(mask.sum()))
+    return rows
 
 
 def _hybrid_part(svc, oracle_mz) -> dict:
@@ -2897,6 +2996,198 @@ def _ctr(torch, arch_id, seed, mesh, rules) -> dict:
     return out
 
 
+# dlrm-mlperf's 26 tables pad to 187,775,488 rows x 128 f32 (96.14 GB), more
+# than one card holds.  They are row-sharded DLRM_SHARDS ways as
+# dlrm_shardings lays them out: one block a card where there are four cards;
+# else four blocks on one card, with every table's padded rows capped at
+# DLRM_ROW_CAP (87,956,992 rows, 45.03 GB).  Widths, the 26 tables, the MLPs
+# and the batch sizes are never cut.
+DLRM_SHARDS = 4
+DLRM_ROW_CAP = 1 << 24
+DLRM_SMOKE_CAP = 8_192   # RECSYS_SMOKE: the smoke widths' tables that shard
+DLRM_F64_CHUNK = 65_536  # examples a chunk of the f64 check (its memory)
+
+
+def _dlrm_compact(torch, params, batch):
+    """The oracle's inputs: for each table, the batch's unique ids taken
+    from its blocks by plain indexing into a compact whole table on the
+    lead device, and the batch's ids remapped to its rows
+    (``torch.unique``'s inverse)."""
+    from repro_torch.dist.sharding import RowShardedTable
+
+    sparse = batch["sparse"]
+    tables, cols = [], []
+    for i, t in enumerate(params["tables"]):
+        u, inv = torch.unique(sparse[:, i].long(), return_inverse=True)
+        if isinstance(t, RowShardedTable):
+            rows = []
+            for s, blk in enumerate(t.blocks):
+                lo = s * t.block
+                mine = u[(u >= lo) & (u < lo + t.block)] - lo
+                rows.append(blk[mine.to(blk.device)].to(u.device))
+            tables.append(torch.cat(rows))
+        else:
+            tables.append(t[u])
+        cols.append(inv.to(sparse.dtype))
+    return (dict(params, tables=tables),
+            dict(batch, sparse=torch.stack(cols, dim=1)))
+
+
+def _median_ms(torch, fn, cards, reps: int = 5) -> float:
+    """The median of ``reps`` warm calls' device ms: CUDA events on the
+    lead card around each call, every card synchronised after it."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _dlrm(torch, seed) -> dict:
+    """dlrm-mlperf's serve_p99 and serve_bulk through the arch's serve step
+    (``RecsysArch.build``) over params placed as its shardings say: the
+    tables of at least ``_SHARD_MIN_ROWS`` rows in DLRM_SHARDS row blocks
+    on ``local_model_devices``, the small tables and the MLPs whole on the
+    lead card.  Each forward is bit-equal to the unsharded forward over
+    compact tables of the batch's rows, and within F64_RTOL of it in
+    f64; the blocks hold their rows, every id is routed once."""
+    import copy
+    import dataclasses
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.recsys_archs import SHAPES, smoke_data
+    from repro_torch.dist.sharding import (AbstractMesh, RowShardedTable,
+                                           default_rules)
+    from repro_torch.launch.mesh import local_model_devices
+    from repro_torch.models import recsys as R
+
+    t_part = time.perf_counter()
+    devices = local_model_devices(DLRM_SHARDS, DEVICE)
+    cards = sorted(set(devices))
+    published = get_arch("dlrm-mlperf").cfg
+    arch = copy.copy(_family_arch("dlrm-mlperf"))
+    cut = len(cards) < len(devices)     # several blocks share a card
+    if cut:
+        cap = DLRM_SMOKE_CAP if RECSYS_SMOKE else DLRM_ROW_CAP
+        arch.cfg = dataclasses.replace(arch.cfg, vocab_sizes=tuple(
+            min(v, cap) for v in published.vocab_sizes))
+    cfg = arch.cfg
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+
+    def table_gb(c):
+        return sum(c.padded_vocab_sizes) * c.embed_dim * 4 / 1e9
+
+    out = {"devices": devices, "shards": DLRM_SHARDS, "nvidia_smi": _smi(),
+           "tables_gb": table_gb(cfg), "rows": sum(cfg.padded_vocab_sizes),
+           "published_tables_gb": table_gb(published),
+           "published_rows": sum(published.padded_vocab_sizes),
+           "reduced": [] if not cut else [
+               f"every table's padded rows capped at {cap:,} (four blocks "
+               f"on one card): {sum(cfg.padded_vocab_sizes):,} rows, "
+               f"{table_gb(cfg):.2f} GB of the published "
+               f"{sum(published.padded_vocab_sizes):,}, "
+               f"{table_gb(published):.2f} GB"]}
+    mesh = AbstractMesh((1, DLRM_SHARDS), ("data", "model"))
+    rules = default_rules(mesh)
+    if DEVICE == "cuda":
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    params = R.dlrm_init(cfg, seed, device=devices[0], devices=devices)
+    if DEVICE == "cuda":
+        for c in cards:
+            torch.cuda.synchronize(c)
+    out["init_s"] = time.perf_counter() - t0
+    tables = params["tables"]
+    sharded = [t for t in tables if isinstance(t, RowShardedTable)]
+    for rows, t in zip(cfg.padded_vocab_sizes, tables):
+        big = rows >= R._SHARD_MIN_ROWS
+        if big != isinstance(t, RowShardedTable) or (big and (
+                [str(blk.device) for blk in t.blocks]
+                != [str(torch.device(d)) for d in devices]
+                or any(blk.shape != (rows // DLRM_SHARDS, cfg.embed_dim)
+                       for blk in t.blocks))):
+            raise AssertionError(f"dlrm: a table of {rows} rows is not "
+                                 f"placed as dlrm_shardings says")
+    leaves = pytree.tree_leaves(params)
+    whole_bytes = sum(t.numel() * t.element_size() for t in leaves
+                      if isinstance(t, torch.Tensor))
+    out["sharded_tables"] = len(sharded)
+    out["bytes_a_shard"] = [sum(t.blocks[s].numel() * 4 for t in sharded)
+                            for s in range(DLRM_SHARDS)]
+    out["bytes_whole_on_lead"] = whole_bytes
+    out["bytes_a_card"] = {c: sum(
+        b for b, d in zip(out["bytes_a_shard"], devices) if d == c)
+        + (whole_bytes if c == devices[0] else 0) for c in cards}
+    if DEVICE == "cuda":
+        out["init_peak_gb"] = {c: torch.cuda.max_memory_allocated(c) / 1e9
+                               for c in cards}
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+    for k, shape in enumerate(("serve_p99", "serve_bulk")):
+        b = SHAPES[shape]["batch"] if not RECSYS_SMOKE else 64 * (k + 1)
+        batch = smoke_data(arch.arch_id, cfg, b, devices[0], seed=seed + k)
+        spec = arch.build(shape, mesh, rules)
+        args = (*leaves, *batch.values())
+        if not RECSYS_SMOKE:
+            _spec_args(spec, rules, args, f"dlrm-mlperf {shape}")
+        for t in sharded:
+            t.routed = [0] * DLRM_SHARDS
+        rec = {"batch": b}
+        with torch.no_grad():
+            got = spec.fn(*args)
+            if any(sum(t.routed) != b for t in sharded):
+                raise AssertionError(f"dlrm {shape}: an id routed other than "
+                                     f"once: {[t.routed for t in sharded]}")
+            rec["rows_routed_a_shard"] = [sum(t.routed[s] for t in sharded)
+                                          for s in range(DLRM_SHARDS)]
+            compact, cbatch = _dlrm_compact(torch, params, batch)
+            rec["compact_rows"] = sum(t.shape[0] for t in compact["tables"])
+            want = R.dlrm_forward(compact, cbatch, cfg, rules)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"dlrm {shape}: sharded logits differ from the compact "
+                    f"unsharded forward by {float((got - want).abs().max())}")
+            del compact, cbatch, want
+            errs = []
+            for lo in range(0, b, DLRM_F64_CHUNK):
+                part = {key: v[lo:lo + DLRM_F64_CHUNK]
+                        for key, v in batch.items()}
+                compact, cbatch = _dlrm_compact(torch, params, part)
+                p64 = pytree.tree_map(lambda t: t.double(), compact)
+                del compact
+                errs.append(_check_f64(
+                    f"dlrm-mlperf {shape} [{lo}:]",
+                    got[lo:lo + DLRM_F64_CHUNK],
+                    R.dlrm_forward(p64, cbatch, cfg64, rules)))
+                del p64, cbatch
+            rec["bit_equal_compact"] = True
+            rec["f64_rel_err"] = max(errs)
+            del got
+            rec["ms"] = _median_ms(torch, lambda: spec.fn(*args), cards)
+            # host ms, device ms (summed over the cards) and launches a call
+            rec["profile"] = _step_profile(torch, lambda: spec.fn(*args))
+        out[shape] = rec
+        del batch, args
+    if DEVICE == "cuda":
+        out["serve_peak_gb"] = {c: torch.cuda.max_memory_allocated(c) / 1e9
+                                for c in cards}
+    out["seconds"] = time.perf_counter() - t_part
+    emit({"phase": "recsys_gnn", "part": "dlrm-mlperf serve", **out})
+    del params, leaves, tables, sharded
+    _free(torch)
+    return out
+
+
 def _pna(torch, seed, rules) -> dict:
     """PNA at its published widths: minibatch_lg (the Reddit-scale source
     graph on the host, its CSR, then RECSYS_TRAIN["steps"] steps each
@@ -3151,11 +3442,11 @@ def phase_recsys_gnn(torch, seed: int) -> dict:
     """The GNN and recsys families on the card at their published widths,
     seeded from ``seed``: two-tower-retrieval (retrieval_cand through
     K1 -> K2 -> K3 against the plain step, serve_p99, training), bst and
-    autoint (serve forwards, training), PNA (minibatch_lg through the
-    neighbour sampler, full_graph_sm, molecule on the whole-edge path,
-    ogb_products on the edge-chunked one).  dlrm-mlperf (96.1 GB of
-    tables) runs only as a dry-run cell.  The phase's launches are those
-    of the retrieval_cand step's one run."""
+    autoint (serve forwards, training), dlrm-mlperf (serve forwards over
+    its tables row-sharded four ways: ``_dlrm``), PNA (minibatch_lg
+    through the neighbour sampler, full_graph_sm, molecule on the
+    whole-edge path, ogb_products on the edge-chunked one).  The phase's
+    launches are those of the retrieval_cand step's one run."""
     from repro_torch.dist.sharding import default_rules
     from repro_torch.launch.mesh import make_local_mesh
 
@@ -3166,6 +3457,7 @@ def phase_recsys_gnn(torch, seed: int) -> dict:
     out["launches"] = out["two_tower"]["retrieval_cand"]["launches"]
     for arch_id in ("bst", "autoint"):
         out[arch_id] = _ctr(torch, arch_id, seed, mesh, rules)
+    out["dlrm"] = _dlrm(torch, seed)
     out["pna"] = _pna(torch, seed, rules)
     out["seconds"] = time.perf_counter() - t0
     emit({"phase": "recsys_gnn", "launches": out["launches"],
@@ -3176,6 +3468,7 @@ def phase_recsys_gnn(torch, seed: int) -> dict:
                                          "train")),
               "bst": out["bst"]["seconds"],
               "autoint": out["autoint"]["seconds"],
+              "dlrm": out["dlrm"]["seconds"],
               "pna": sum(p["seconds"] for p in out["pna"].values())}})
     return out
 

@@ -13,6 +13,8 @@ The port of ``repro.configs.recsys_archs``.  Shapes (assignment):
 
 ``build`` gives each cell's step over meta tensors of the global shapes;
 :meth:`RecsysArch.step_cost` is the port's own count of one device's step.
+A serve step runs as well on params :meth:`RecsysArch.place` has laid out
+over the devices of the mesh's 'model' axis (its tables row-sharded).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from repro_torch.configs.base import (ArchSpec, LoweredSpec, ShapeCell, meta,
 from repro_torch.configs.flexvec import pem_serve_step, step_work
 from repro_torch.data import recsys as RD
 from repro_torch.data.recsys import CRITEO_1TB_VOCAB_SIZES
-from repro_torch.dist.sharding import ShardingRules, default_rules
+from repro_torch.dist.sharding import (ShardingRules, default_rules,
+                                       mesh_shape, place_rows)
 from repro_torch.models import recsys as R
 from repro_torch.roofline.analysis import KernelWork, StepCost
 from repro_torch.train.optimizer import loss_and_grads
@@ -167,6 +170,19 @@ class RecsysArch(ArchSpec):
         params, specs = self._meta_params(rules)
         return recsys_step_cost(self.arch_id, self.cfg, params, specs, b,
                                 s["kind"] == "train", rules)
+
+    def place(self, params, rules: ShardingRules, devices) -> Any:
+        """``params`` laid out as the arch's shardings under ``rules`` say,
+        over ``devices`` (the mesh's 'model' axis, the first the lead; one
+        device may stand for several): each table whose rows name
+        'table_rows' split into row blocks, every other leaf whole on the
+        lead.  A serve step of :meth:`build` takes the placed leaves."""
+        size = mesh_shape(rules.mesh).get("model")
+        if size != len(devices):
+            raise ValueError(f"{len(devices)} devices for a 'model' axis of "
+                             f"{size}")
+        return place_rows(params, self._shardings(self.cfg, params, rules),
+                          devices)
 
     def smoke_run(self, device: Any = "cuda") -> Dict[str, Any]:
         """The reference's smoke path on ``device`` (the card unless the

@@ -28,12 +28,22 @@ Vocabulary (every logical axis any spec in the tree may name):
 names.  The reference runs its LM on a 1x1 mesh only (the trainer, the
 decode engine) and only lowers it on the production meshes, so the port's
 ``constrain`` checks the names and places nothing.
+
+What is placed are params: :func:`place_rows` lays a param tree out by
+its spec tree over a list of devices standing for the mesh's 'model'
+axis, each leaf whose rows name 'model' (a recsys table's 'table_rows')
+as a :class:`RowShardedTable` of contiguous row blocks, every other leaf
+whole on the lead device.  That is how XLA holds the reference's tables
+given several devices; the lookup that reads such a table is
+``models/recsys.embedding_lookup``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
 
 # A logical axis maps to: no mesh axis (replicate), one mesh axis, or a
 # tuple of mesh axes (the dim is divided over their product, major-first).
@@ -156,11 +166,81 @@ class ShardingRules:
 def constrain(x: Any, rules: ShardingRules, *names: Optional[str]) -> Any:
     """The reference's logical-name sharding constraint: every name must be
     one of the rules' logical axes (an unknown one raises ``KeyError``, as
-    :meth:`ShardingRules.spec` does), and ``x`` comes back unchanged.  The
-    port's LM runs on one device, and the dry run counts its collectives
-    from the rules (``configs/lm.py``), not from constraints."""
+    :meth:`ShardingRules.spec` does), and ``x`` comes back unchanged.  An
+    activation stays where it is computed: the port's LM runs on one
+    device, the dry run counts collectives from the rules
+    (``configs/lm.py``), and what is placed over devices is a recsys
+    model's tables (:func:`place_rows`), whose lookups bring their rows
+    to the lead device."""
     rules.spec(*names)
     return x
+
+
+# -- placement: params over the devices of the 'model' axis -------------------
+
+
+@dataclasses.dataclass(eq=False)
+class RowShardedTable:
+    """A (V, D) table held as S contiguous row blocks: block ``s``, rows
+    ``s * block`` to ``(s + 1) * block``, on ``blocks[s].device`` (several
+    blocks may share a device).  ``routed[s]`` counts the ids looked up
+    in block ``s`` since the caller last zeroed it."""
+
+    blocks: List[torch.Tensor]
+    shape: Tuple[int, int]
+    block: int
+    dtype: torch.dtype
+    routed: List[int] = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.routed = [0] * len(self.blocks)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.blocks)
+
+
+def place_leaf(t: torch.Tensor, spec: Spec, devices: Sequence[Any],
+               name: str = "") -> Any:
+    """One param placed by its spec over ``devices`` (S of them, standing
+    for the mesh's 'model' axis; the first is the lead): rows that name
+    'model' split into S contiguous blocks, a copy on each device (S must
+    divide the rows), anything else a whole tensor on the lead device."""
+    from repro_torch.models import check_device
+
+    devs = [check_device(d) for d in devices]
+    axes = [_as_tuple(a) for a in spec]
+    if any("model" in a for a in axes[1:]):
+        raise NotImplementedError(f"{name}: only rows are placed over "
+                                  f"'model', spec {spec}")
+    if not axes or "model" not in axes[0]:
+        return t.detach().to(devs[0])
+    n, s = t.shape[0], len(devs)
+    if n % s:
+        raise ValueError(f"{name}: {n} rows do not split into {s} row "
+                         f"blocks")
+    blk = n // s
+    blocks = [t[j * blk:(j + 1) * blk].detach().to(d, copy=True)
+              for j, d in enumerate(devs)]
+    return RowShardedTable(blocks, tuple(t.shape), blk, t.dtype)
+
+
+def place_rows(params: Any, specs: Any, devices: Sequence[Any]) -> Any:
+    """``params`` (a tree of dicts and lists) placed leaf by leaf with
+    :func:`place_leaf` by the spec tree ``specs`` of the same structure
+    (a ``*_shardings`` result); a leaf that does not split names its path."""
+
+    def walk(p, s, path):
+        if isinstance(p, dict):
+            return {k: walk(v, s[k], f"{path}{k}/") for k, v in p.items()}
+        if isinstance(p, list):
+            return [walk(v, sv, f"{path}{j}/")
+                    for j, (v, sv) in enumerate(zip(p, s))]
+        return place_leaf(p, s, devices, path.rstrip("/"))
+
+    if not devices:
+        raise ValueError("no devices to place on")
+    return walk(params, specs, "")
 
 
 def default_rules(mesh: Any) -> ShardingRules:

@@ -45,3 +45,21 @@ def make_local_mesh(device: str = "cuda"):
         return init_device_mesh(dev.type, (dist.get_world_size(), 1),
                                 mesh_dim_names=("data", "model"))
     return AbstractMesh((1, 1), ("data", "model"))
+
+
+def local_model_devices(n: int, device: str = "cuda") -> list:
+    """The ``n`` devices that stand for a mesh's 'model' axis in one
+    process: ``cuda:0`` to ``cuda:n-1`` where there are n cards, else n
+    times ``cuda:0`` (NCCL takes one rank a card, so several shards on one
+    card share a process); ``["cpu"] * n`` when the caller asks for the
+    CPU.  A missing card raises."""
+    if device == "cpu":
+        return ["cpu"] * n
+    if device != "cuda":
+        raise ValueError(f"no local model devices on {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the model axis runs on the card; "
+                           "pass device='cpu' to run on the CPU")
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{j}" for j in range(n)]
+    return ["cuda:0"] * n

@@ -7,8 +7,12 @@ plain ``jnp``):
   sum or mean over the bag (-1 marks padding).  A table's gradient is
   dense, as under ``jnp.take``: the gather's backward writes a zero
   tensor of the table's shape and adds the rows in.
-* Row-sharded embedding tables on the production mesh: big tables
-  (Criteo 1TB / MLPerf: ~188M rows) name 'table_rows' in their specs.
+* Row-sharded embedding tables: big tables (Criteo 1TB / MLPerf: ~188M
+  rows) name 'table_rows' in their specs.  Placed over the devices of
+  the 'model' axis (``dist/sharding.place_rows``, or ``dlrm_init``'s
+  ``devices``) such a table is a ``RowShardedTable`` of contiguous row
+  blocks, and :func:`embedding_lookup` routes each id to its block and
+  brings only the looked-up rows to the lead device.
 
 The Two-Tower ``retrieval_cand`` step (``configs/recsys_archs.py``)
 scores one user against 1M precomputed item-tower vectors through the
@@ -23,12 +27,14 @@ give empty tensors on the meta device (the dry run).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import ShardingRules, constrain
+from repro_torch.dist.sharding import (AbstractMesh, RowShardedTable,
+                                       ShardingRules, constrain,
+                                       default_rules, place_leaf)
 from repro_torch.models import Draws, params_from_numpy  # noqa: F401
 
 Params = Dict[str, Any]
@@ -39,13 +45,39 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
-def embedding_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Single-value lookup: (V, D) x (B,) -> (B, D)."""
+def embedding_lookup(table: Any, idx: torch.Tensor) -> torch.Tensor:
+    """Single-value lookup: (V, D) x (B,) -> (B, D) on ``idx``'s device,
+    from a whole table or a :class:`RowShardedTable`."""
+    if isinstance(table, RowShardedTable):
+        return _sharded_lookup(table, idx)
     return table.index_select(0, idx.reshape(-1).long())
 
 
+def _sharded_lookup(table: RowShardedTable, idx: torch.Tensor) -> torch.Tensor:
+    """Each id routed to its row block (``id // block``); each block's
+    device gathers its own rows, which come back to ``idx``'s device and
+    are scattered into the output at their positions.  Rows are copied,
+    never summed, so the result is bit-equal to a lookup in the whole
+    table, and only the B looked-up rows cross between devices."""
+    ids = idx.reshape(-1).long()
+    owner = torch.div(ids, table.block, rounding_mode="floor")
+    counts = torch.bincount(owner, minlength=table.n_shards).tolist()
+    if len(counts) > table.n_shards:
+        raise IndexError(f"an id is past the table's {table.shape[0]} rows")
+    order = torch.argsort(owner, stable=True)
+    out = torch.empty((ids.numel(), table.shape[1]), dtype=table.dtype,
+                      device=ids.device)
+    for s, (pos, blk) in enumerate(zip(order.split(counts), table.blocks)):
+        if not counts[s]:
+            continue
+        local = (ids.index_select(0, pos) - s * table.block).to(blk.device)
+        out.index_copy_(0, pos, blk.index_select(0, local).to(ids.device))
+        table.routed[s] += counts[s]
+    return out
+
+
 def embedding_bag(
-    table: torch.Tensor,      # (V, D)
+    table: Any,               # (V, D): a tensor or a RowShardedTable
     idx: torch.Tensor,        # (B, L) int, padded with -1
     mode: str = "sum",
 ) -> torch.Tensor:
@@ -120,16 +152,36 @@ class DLRMConfig:
 _SHARD_MIN_ROWS = 4096
 
 
-def dlrm_init(cfg: DLRMConfig, seed: int = 0, *, device: Any = "cuda") -> Params:
+def dlrm_init(cfg: DLRMConfig, seed: int = 0, *, device: Any = "cuda",
+              devices: Optional[Sequence[Any]] = None) -> Params:
+    """Seeded DLRM params on ``device``.  With ``devices`` (S of them, the
+    mesh's 'model' axis, the first the lead) they are placed as
+    :func:`dlrm_shardings` lays them out while they are drawn: each table
+    is drawn whole on ``device`` from the same generator in the same order,
+    then split into S row blocks (or moved whole to the lead) and freed, so
+    the placed values equal the unplaced init's and no device holds more
+    than one whole table beside its blocks."""
     draw = Draws(seed, device, cfg.dtype)
-    tables = [draw.uniform((v, cfg.embed_dim), 1.0 / v ** 0.5)
-              for v in cfg.padded_vocab_sizes]
+    specs = None if devices is None else dlrm_shardings(cfg, default_rules(
+        AbstractMesh((1, len(devices)), ("data", "model"))))
+
+    def put(t, key, j):
+        if specs is None:
+            return t
+        return place_leaf(t, specs[key][j], devices, f"{key}/{j}")
+
+    tables = [put(draw.uniform((v, cfg.embed_dim), 1.0 / v ** 0.5),
+                  "tables", i)
+              for i, v in enumerate(cfg.padded_vocab_sizes)]
     n_int = cfg.n_sparse + 1
     d_inter = (n_int * (n_int - 1)) // 2
     bw, bb = _init_mlp(draw, (cfg.n_dense,) + cfg.bot_mlp)
     tw, tb = _init_mlp(draw, (cfg.bot_mlp[-1] + d_inter,) + cfg.top_mlp)
-    return {"tables": tables, "bot_w": bw, "bot_b": bb, "top_w": tw,
-            "top_b": tb}
+    params = {"tables": tables, "bot_w": bw, "bot_b": bb, "top_w": tw,
+              "top_b": tb}
+    for k in ("bot_w", "bot_b", "top_w", "top_b"):
+        params[k] = [put(t, k, j) for j, t in enumerate(params[k])]
+    return params
 
 
 def dlrm_shardings(cfg: DLRMConfig, rules: ShardingRules) -> Params:

@@ -699,6 +699,63 @@ def test_two_tower_retrieval_step_on_the_card(cuda):
                              list(zip(wi[0].tolist(), wv[0].tolist())))
 
 
+def _dlrm_arch(vocab_cap=None):
+    """dlrm-mlperf's arch at its published widths, every vocabulary
+    capped at ``vocab_cap`` when one is given."""
+    import copy
+
+    from repro_torch.configs import get_arch
+
+    arch = copy.copy(get_arch("dlrm-mlperf"))
+    if vocab_cap is not None:
+        arch.cfg = dataclasses.replace(arch.cfg, vocab_sizes=tuple(
+            min(v, vocab_cap) for v in arch.cfg.vocab_sizes))
+    return arch
+
+
+def _dlrm_serve(arch, params, b, device, shards=4):
+    """serve_p99's step (``RecsysArch.build``) over ``params`` on a seeded
+    batch of ``b``: (logits, the batch)."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs.recsys_archs import smoke_data
+    from repro_torch.dist.sharding import AbstractMesh, default_rules
+
+    mesh = AbstractMesh((1, shards), ("data", "model"))
+    rules = default_rules(mesh)
+    batch = smoke_data(arch.arch_id, arch.cfg, b, device, seed=1)
+    spec = arch.build("serve_p99", mesh, rules)
+    with torch.no_grad():
+        return spec.fn(*pytree.tree_leaves(params), *batch.values()), batch
+
+
+def test_dlrm_four_shards_on_one_card(cuda):
+    """Four row blocks of every table of at least 4,096 rows on cuda:0
+    (published widths, vocabularies capped at 65,536): the placed init
+    equals the whole one, and serve_p99's logits at 4,096 are bit-equal to
+    the whole-table forward's, placed by the init or by ``place``."""
+    from repro_torch.dist.sharding import (AbstractMesh, RowShardedTable,
+                                           default_rules)
+    from repro_torch.models import recsys as R
+
+    arch = _dlrm_arch(65_536)
+    whole = R.dlrm_init(arch.cfg, 0, device="cuda:0")
+    placed = R.dlrm_init(arch.cfg, 0, device="cuda:0",
+                         devices=["cuda:0"] * 4)
+    assert sum(isinstance(t, RowShardedTable)
+               for t in placed["tables"]) == 15
+    for w, t in zip(whole["tables"], placed["tables"]):
+        if isinstance(t, RowShardedTable):
+            t = torch.cat(t.blocks)
+        assert torch.equal(w, t)
+    got, batch = _dlrm_serve(arch, placed, 4_096, "cuda:0")
+    want, _ = _dlrm_serve(arch, whole, 4_096, "cuda:0")
+    again = arch.place(whole, default_rules(AbstractMesh(
+        (1, 4), ("data", "model"))), ["cuda:0"] * 4)
+    assert torch.equal(got, want)
+    assert torch.equal(_dlrm_serve(arch, again, 4_096, "cuda:0")[0], want)
+
+
 def test_bf16_worker_views_the_codes_on_the_card(cuda):
     """A bf16 shard's resident corpus is the truncated pack_bf16 codes
     viewed as bfloat16, not the f32 rows rounded to nearest."""
@@ -946,6 +1003,42 @@ def test_shard_group_one_worker_a_card(four_cards):
                     np.array([v for _, v in want], np.float32))
             else:
                 _assert_same_mmr_ranking(got, want)
+
+
+def test_dlrm_published_tables_one_block_a_card(four_cards):
+    """dlrm-mlperf's published tables (96.14 GB) row-sharded one block a
+    card: serve_p99's logits at 512 bit-equal to the unsharded forward
+    over compact tables of the batch's rows, gathered from the blocks by
+    plain indexing."""
+    from repro_torch.dist.sharding import (AbstractMesh, RowShardedTable,
+                                           default_rules)
+    from repro_torch.models import recsys as R
+
+    arch = _dlrm_arch()
+    params = R.dlrm_init(arch.cfg, 0, device=four_cards[0],
+                         devices=four_cards)
+    sharded = [t for t in params["tables"] if isinstance(t, RowShardedTable)]
+    assert len(sharded) == 15
+    for t in sharded:
+        assert [str(b.device) for b in t.blocks] == four_cards
+    got, batch = _dlrm_serve(arch, params, 512, four_cards[0])
+    tables, cols = [], []
+    for i, t in enumerate(params["tables"]):
+        u, inv = torch.unique(batch["sparse"][:, i].long(),
+                              return_inverse=True)
+        if isinstance(t, RowShardedTable):
+            rows = torch.stack([t.blocks[j // t.block][j % t.block].to(
+                u.device) for j in u.tolist()])
+        else:
+            rows = t[u]
+        tables.append(rows)
+        cols.append(inv.to(batch["sparse"].dtype))
+    compact = dict(params, tables=tables)
+    with torch.no_grad():
+        want = R.dlrm_forward(compact, dict(batch, sparse=torch.stack(
+            cols, dim=1)), arch.cfg, default_rules(AbstractMesh(
+                (1, 4), ("data", "model"))))
+    assert torch.equal(got, want)
 
 
 # -- filtered, hybrid and delta-segment inputs --------------------------------
