@@ -9,8 +9,9 @@ reference package.  Prints one JSON object per line, in order:
 
 1. the device, then nvidia-smi's name and power limit on a line of its own;
 2. the kernel build: seconds, each kernel's registers, shared memory and
-   spills, the MMR launch's cluster shape with
-   cudaOccupancyMaxActiveClusters, and pem_score's launch shape;
+   spills, the MMR launch's shape (cluster size, rows a CTA keeps in
+   registers and in shared memory, cudaOccupancyMaxActiveClusters and
+   waves) at B = 1, 32 and 64, and pem_score's launch shape;
 3. each kernel against its plain PyTorch version on the card at the main
    path's shapes (max error or exact index equality, the kernel's time,
    the plain version's, one library call's where one computes the same
@@ -20,8 +21,15 @@ reference package.  Prints one JSON object per line, in order:
    batch over five half-lives in one launch timed beside the grouped
    chain of five; top-k also on adversarial
    rows at full size (masked, 100 live, constant, 64 levels, signed zeros
-   at the boundary), MMR also on a pool larger than a cluster's shared
-   memory, each MMR row with its time per step and cluster size;
+   at the boundary) and on a filter batch's -inf-masked (32, 240000)
+   panel at K = 2,048 (rows with fewer, exactly and more than K live
+   keys; in the column-major layout the mask gives and row-major), each
+   beside ``torch.topk`` and the unmasked panel, with per-launch
+   profiles; MMR at B = 1, 32, 4 (three lambdas) and flexvec's B = 64
+   (500 of 1500, one wave), on a pool of 6000 and on one past the on-chip
+   room at d = 256, each row with its launch shape, waves and time per
+   step, then the direct path at clusters of 2-16 CTAs, and what one
+   cluster barrier, or one exchange of K3's, costs alone;
 4. the main path at the paper's production size: 240k chunks through
    SQLite into ``RetrievalService`` on ``HopperBackend("cuda")``, the
    composed query through ``flex_search``, then 64 requests from 32
@@ -50,7 +58,8 @@ reference package.  Prints one JSON object per line, in order:
    bf16, one-stage and two-stage (a one-rank NCCL group): each kernel
    against its plain version on the step's inputs, the step against the
    plain step, two-stage bit-equal to one-stage; step and kernel times,
-   bounds from the shared count, launches, K3's waves, peak memory;
+   bounds from the shared count, launches, K3's launch shape and waves
+   (one: 2 CTAs a query for the 64 queries), peak memory;
 10. ``torch_engine`` (run before the 1M store is dropped, so it comes
     after ``shard_group_1m``): ``TorchBackend``, the same chain as plain
     PyTorch library calls, over the main path's 240k corpus (a service on
@@ -346,10 +355,10 @@ def phase_build() -> None:
                            "spill_stores": int(spill.group(1)) if spill else 0}
     from repro_torch.kernels.mmr import kernel as mmr_kernel
 
-    # the MMR launch's cluster shape at the main path's pool and at a pool
-    # larger than a cluster's shared memory holds
-    mmr_shapes = {f"n={n},d=128": mmr_kernel.shape(n, 128)
-                  for n in (2048, 8192)}
+    # the MMR launch's shape at the direct and batched paths' pools, at
+    # flexvec's batch of 64, and at a pool of 8192
+    mmr_shapes = {f"b={b},n={n},d=128": mmr_kernel.shape(b, n, 128)
+                  for b, n in ((1, 2048), (32, 2048), (64, 2048), (2, 8192))}
     from repro_torch.kernels.pem_score import kernel as pem_kernel
 
     # K1's launch (product width, query chunks, ring stages, resident or
@@ -360,7 +369,7 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_info["seconds"],
           "library": _build.build_info["path"], "kernels": kernels,
-          "mmr_cluster": mmr_shapes, "pem_score_launch": pem_shapes})
+          "mmr_launch": mmr_shapes, "pem_score_launch": pem_shapes})
 
 
 def pem_bound(n: int, d: int, b: int, esize: int) -> dict:
@@ -615,7 +624,102 @@ def phase_topk(torch) -> dict:
             raise AssertionError(f"topk ties k={k}: an index twice")
     emit({"phase": "kernel", "name": "topk", "case": "ties/-inf/-0.0",
           "exact": True})
+    rows["masked"] = topk_masked(torch, gen, rows[(32, 240_000, 2048)])
     return rows
+
+
+# live columns of each row of a filter batch's -inf-masked (32, 240000)
+# panel: 21 one-session filters (50 rows), one row of exactly K, the
+# type and project filters (2.5-45%), an AND of two, one unfiltered row
+MASKED_LIVE = ((50,) * 21 + (2048,)
+               + (6_000, 24_000, 48_000, 60_000, 107_800, 10_000, 20_000,
+                  30_000, 60_000, 240_000))
+
+
+def masked_panel(torch, gen, n):
+    """(len(MASKED_LIVE), n) scores, -inf but at each row's live columns
+    (MASKED_LIVE, drawn at random), made as HopperBackend masks a filter
+    batch's panel: ``torch.where`` over the (N, B) mask's transpose, which
+    gives a column-major panel."""
+    dev = torch.device("cuda")
+    b = len(MASKED_LIVE)
+    mask = torch.zeros((n, b), dtype=torch.bool, device=dev)
+    for r, live in enumerate(MASKED_LIVE):
+        mask[torch.randperm(n, generator=gen, device=dev)[:live], r] = True
+    panel = torch.randn(b, n, generator=gen, device=dev)
+    return torch.where(mask.T, panel, float("-inf"))
+
+
+def topk_masked(torch, gen, unmasked) -> dict:
+    """K2 over a -inf-masked (32, 240000) panel at K = 2,048, rows with
+    fewer, exactly and more than K live keys, in the filter batch's
+    column-major layout and row-major: each exact against the plain
+    version, timed beside ``torch.topk``, the unmasked panel's time of
+    this run, and its per-launch profile."""
+    from repro_torch.configs.flexvec import topk_work
+    from repro_torch.kernels.topk.ops import topk
+    from repro_torch.kernels.topk.ref import topk_ref
+
+    n, k = 240_000, 2048
+    s = masked_panel(torch, gen, n)
+    b = s.shape[0]
+    t, by = bound_ms(topk_work(b, n, k))
+    out = {}
+    for layout, x in (("column-major", s), ("row-major", s.contiguous())):
+        before = topk.launches
+        v, i = topk(x, k)
+        launches = topk.launches - before
+        vr, ir = topk_ref(x, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(i, ir) and torch.equal(v, vr)):
+            raise AssertionError(f"topk masked panel ({layout}): differs "
+                                 f"from the plain version")
+        ms = time_ms(torch, lambda: topk(x, k), 50)
+        lib = time_ms(torch, lambda: torch.topk(x, k, dim=1), 50)
+        row = {"phase": "kernel", "name": "topk", "case": "masked",
+               "layout": layout, "strides": list(x.stride()), "b": b,
+               "n": n, "k": k, "exact": True, "max_abs_err": 0.0,
+               "launches": launches, "live": sum(MASKED_LIVE),
+               "rows_below_k": sum(c < k for c in MASKED_LIVE),
+               "rows_at_k": sum(c == k for c in MASKED_LIVE),
+               "rows_above_k": sum(c > k for c in MASKED_LIVE),
+               "ms": ms,
+               "plain_ms": time_ms(torch, lambda: topk_ref(x, k), 10),
+               "library_ms": lib, "faster_than_library": ms < lib,
+               "bound_ms": t, "bound_by": by, "unmasked_ms": unmasked["ms"],
+               "over_unmasked": ms / unmasked["ms"],
+               "per_launch_us": launch_breakdown(torch, lambda: topk(x, k)),
+               "unmasked_per_launch_us": unmasked["per_launch_us"]}
+        emit(row)
+        out[layout] = row
+    return out
+
+
+def cluster_barrier_ns(torch) -> dict:
+    """What a K3 step's exchange costs alone, by cluster size and CTA
+    width (K3's 256 and 384 threads), one CTA an SM: ns an exchange for
+    one cluster and for as many as the card keeps resident, by
+    ``mmr_kernel.PROBE_MODES`` (a cluster barrier; one and a read of the
+    next CTA's shared memory; mbarrier arrivals with release semantics;
+    st.async with transaction counts, K3's own exchange)."""
+    from repro_torch.kernels.mmr import kernel as mmr_kernel
+
+    iters = 20_000
+    resident = mmr_kernel.limits()["resident"]
+    out = {}
+    for threads in (256, 384):
+        for c in (1, 2, 8, 16):
+            for clusters in (1, resident[c]):
+                for mode, name in enumerate(mmr_kernel.PROBE_MODES):
+                    buf = torch.empty(c * clusters, dtype=torch.int32,
+                                      device="cuda")
+                    ms = time_ms(torch, lambda: mmr_kernel.cluster_sync_probe(
+                        c, clusters, threads, iters, mode, buf), 3)
+                    out[f"threads={threads},C={c},clusters={clusters},"
+                        f"{name}"] = ms * 1e6 / iters
+    emit({"phase": "kernel", "name": "mmr", "case": "cluster barrier",
+          "iters": iters, "ns_per_exchange": out})
+    return out
 
 
 def phase_mmr(torch) -> dict:
@@ -626,39 +730,47 @@ def phase_mmr(torch) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    d = 128
-    rows = {}
-    # (b, k, bucket, live, lambdas): the direct path, the batched path, the
-    # three lambdas, and a pool larger than a cluster's shared memory holds
-    # (its rows past that are read from global memory)
-    cases = ((1, 500, 2048, 1500, (0.7,)), (32, 10, 2048, 1500, (0.7,)),
-             (4, 500, 2048, 1500, (0.7, 0.0, 1.0)),
-             (2, 100, 8192, 6000, (0.7, 0.0, 1.0)))
-    for b, k, bucket, pool, lams in cases:
-        shape = mmr_kernel.shape(bucket, d)
+    rows = {"cluster_barrier_ns": cluster_barrier_ns(torch)}
+
+    def pool(b, bucket, live, d):
         e = torch.randn(b, bucket, d, generator=gen, device=dev)
         e /= e.norm(dim=-1, keepdim=True)
         rel = torch.randn(b, bucket, generator=gen, device=dev) * 0.1
-        rel[:, pool:] = NEG
+        rel[:, live:] = NEG
+        return e, rel
+
+    def check(name, got, want, live):
+        (idx, val), (ir, vr) = got, want
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(idx, ir))
+        err = float((val - vr).abs().max())
+        if not exact or err > TOL or int(idx.max()) >= live:
+            raise AssertionError(f"mmr {name}: indices equal {exact}, value "
+                                 f"error {err}")
+        return err
+
+    # (b, k, bucket, live, d, lambdas): the direct path, the batched path,
+    # the three lambdas, flexvec's batch of 64 pools, a pool of 6000, and
+    # one past the on-chip room at d = 256 (rows read from global memory)
+    cases = ((1, 500, 2048, 1500, 128, (0.7,)),
+             (32, 10, 2048, 1500, 128, (0.7,)),
+             (4, 500, 2048, 1500, 128, (0.7, 0.0, 1.0)),
+             (64, 500, 2048, 1500, 128, (0.7, 0.0)),
+             (2, 100, 8192, 6000, 128, (0.7, 0.0, 1.0)),
+             (2, 100, 8192, 6000, 256, (0.7,)))
+    for b, k, bucket, live, d, lams in cases:
+        shape = mmr_kernel.shape(b, bucket, d, live=live)
+        e, rel = pool(b, bucket, live, d)
         for lam in lams:
             lam_t = torch.full((b,), lam, device=dev)
-            idx, val = mmr_select(e, rel, k, lam_t)
-            ir, vr = mmr_ref(e, rel, k, lam_t)
-            torch.cuda.synchronize()
-            exact = bool(torch.equal(idx, ir))
-            err = float((val - vr).abs().max())
-            if not exact or err > TOL or int(idx.max()) >= pool:
-                raise AssertionError(f"mmr b={b} n={bucket} k={k} lam={lam}: "
-                                     f"indices equal {exact}, value error "
-                                     f"{err}")
+            err = check(f"b={b} n={bucket} d={d} k={k} lam={lam}",
+                        mmr_select(e, rel, k, lam_t),
+                        mmr_ref(e, rel, k, lam_t), live)
             ms = time_ms(torch, lambda: mmr_select(e, rel, k, lam_t), 10)
             row = {"phase": "kernel", "name": "mmr", "b": b, "n": bucket,
-                   "live": pool, "d": d, "k": k, "lam": lam, "exact": exact,
+                   "live": live, "d": d, "k": k, "lam": lam, "exact": True,
                    "max_abs_err": err, "ms": ms, "ms_per_step": ms / k,
-                   "cluster": shape["cluster"],
-                   "rows_in_smem_per_cta": shape["rows_in_smem"],
-                   "global_rows": max(0, pool - shape["cluster"]
-                                      * shape["rows_in_smem"])}
+                   "launch": shape}
             if lam == 0.7 and bucket == 2048 and b != 4:
                 row["plain_ms"] = time_ms(
                     torch, lambda: mmr_ref(e, rel, k, lam_t), 2)
@@ -666,10 +778,33 @@ def phase_mmr(torch) -> dict:
                 # the k dependent steps bound it in practice; the formula's
                 # floor is the live pool and rel read once, the picks
                 # written, or the k * live * d similarity products
-                t, by = bound_ms(mmr_work(b, pool, k, d, bucket))
+                t, by = bound_ms(mmr_work(b, live, k, d, bucket))
                 row.update(bound_ms=t, bound_by=by)
                 rows[(b, k)] = row
             emit(row)
+    # the direct path at other cluster widths than the plan's
+    b, k, bucket, live, d = 1, 500, 2048, 1500, 128
+    e, rel = pool(b, bucket, live, d)
+    lam_t = torch.full((b,), 0.7, device=dev)
+    want = mmr_ref(e, rel, k, lam_t)
+    widths = {}
+    for c in (2, 4, 8, 16):
+        idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+        val = torch.empty((b, k), device=dev)
+
+        def run():
+            mmr_kernel.launch(e, rel, lam_t, k, idx, val, cluster=c)
+
+        run()
+        check(f"b=1 cluster={c}", (idx, val), want, live)
+        widths[c] = {"ms": time_ms(torch, run, 10),
+                     "launch": mmr_kernel.shape(b, bucket, d, live=live,
+                                                cluster=c)}
+    emit({"phase": "kernel", "name": "mmr", "case": "cluster widths",
+          "b": b, "n": bucket, "live": live, "d": d, "k": k,
+          "plan_cluster": mmr_kernel.shape(b, bucket, d)["cluster"],
+          "widths": widths})
+    rows["widths"] = widths
     return rows
 
 
@@ -1319,7 +1454,7 @@ def phase_flexvec_arch(torch, seed: int) -> dict:
         for shape in FLEXVEC_CELLS:
             s = SHAPES[shape]
             n, b, over, pool = s["n"], s["batch"], s["over"], s["pool"]
-            occupancy = mmr_kernel.shape(over, DIM)
+            k3 = mmr_kernel.shape(b, over, DIM)
             base = torch.randn(n, DIM, generator=gen, device=dev)
             base /= base.norm(dim=1, keepdim=True)
             days = torch.rand(n, generator=gen, device=dev) * 90.0
@@ -1363,10 +1498,10 @@ def phase_flexvec_arch(torch, seed: int) -> dict:
                            "two_stage": two_stage, "launches": counts,
                            "step_ms": time_ms(torch, lambda: spec.fn(*args),
                                               10),
+                           "k3_launch": k3,
                            "k3_max_active_clusters":
-                               occupancy["max_active_clusters"],
-                           "k3_waves": -(-b // occupancy[
-                               "max_active_clusters"]),
+                               k3["max_active_clusters"],
+                           "k3_waves": k3["waves"],
                            "resident_bytes_before": resident,
                            "max_memory_allocated": peak}
                     if two_stage:
@@ -2886,7 +3021,7 @@ def _two_tower(torch, seed, mesh, rules) -> dict:
         from repro_torch.kernels.pem_score import kernel as pem_kernel
 
         ret["k1_launch"] = pem_kernel.plan(n, cand.shape[1], 1)
-        ret["k3_launch"] = mmr_kernel.shape(OVER, cand.shape[1])
+        ret["k3_launch"] = mmr_kernel.shape(1, OVER, cand.shape[1])
     ret.update(_flexvec_kernels(torch, cand, days, u, zero, OVER, POOL, TOL))
     ret["step_ms"] = time_ms(torch, lambda: spec.fn(*args), 10)
     ret["plain_step_ms"] = time_ms(torch, lambda: pem_serve_step_plain(

@@ -213,7 +213,8 @@ class FlexvecArch(ArchSpec):
         mmr_vmem  — account MMR, in ``cost_corrections``, with the pool
                     resident on chip (ONE read) instead of the reference's
                     jnp loop re-reading it every step; the port's K3 keeps
-                    the pool in its cluster's shared memory either way;
+                    the pool on chip (registers and shared memory) either
+                    way;
         two_stage — shard-local scoring and top-k with a union merge
                     (``dist/pem_sharded.make_pem_topk``) instead of the
                     global top-k over the gathered (N, B) panel."""

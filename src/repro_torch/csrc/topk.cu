@@ -15,6 +15,13 @@
 // phases that the host enqueues in one call with no synchronisation and
 // no data-dependent host loop:
 //
+// 0. A panel whose rows are not contiguous (a filter batch's mask makes
+//    the (B, N) panel column-major: torch.where(mask.T, ...)) would have
+//    each warp's 32 keys of a row lie 4 B * B apart, and every pass move
+//    a 32-byte sector for each 4-byte key.  So its first radix pass reads
+//    it once in 32 x 32 tiles through shared memory, histograms each tile
+//    a lane a row, and writes it row-major into the workspace, which the
+//    later passes read: the same launches, one extra write of the panel.
 // 1. Radix select (three launches, digits of 8, 12 and 12 bits, most
 //    significant first) over the 32-bit order-flipped value (IEEE total
 //    order, -0.0 below +0.0).  The grid is (chunks along N, B), so a
@@ -33,15 +40,21 @@
 // 2. Survivors.  The last pass already knows v*'s top 20 bits, so it
 //    appends every key above them to the row's survivors: a block stages
 //    its own in shared memory and reserves room for them with one atomic
-//    add on the row's cursor (their order there does not matter).  Two
-//    light launches finish the rest.  Only warps whose share holds a key
-//    with v*'s 20-bit prefix read it again, append its keys above v* and
-//    count its ties.  Then each block with ties sums the tie counts before
-//    it in (block, warp) order, which is index order, and each warp writes
-//    its ties whose rank among the row's ties is below t.  So the smallest
-//    indices win by construction and exactly K keys survive, also when
-//    nearly the whole row ties (a fully masked row is N ties at -inf).
-//    The panel is read three times in all, plus the shares that hold v*.
+//    add on the row's cursor (their order there does not matter), and
+//    counts, a warp at a time, the keys that share those 20 bits.  Two
+//    light launches finish the rest.  The tie count: only warps whose
+//    share holds a key with v*'s 20-bit prefix read it again, append its
+//    keys above v* and count its ties; a row where v* is its smallest key
+//    and no key above v* shares its prefix (a masked row with fewer than K
+//    live keys, where v* is -inf) reads nothing, since pass 2's counts are
+//    then its tie counts.  The tie write: each block with ties sums the
+//    tie counts before it in (block, warp) order, which is index order,
+//    and each warp writes its ties whose rank among the row's ties is
+//    below t, stopping there (on such a masked row only the warps that
+//    cover columns [0, K) write).  So the smallest indices win by
+//    construction and exactly K keys survive, also when nearly the whole
+//    row ties (a fully masked row is N ties at -inf).  The panel is read
+//    three times in all, plus the shares that hold v*.
 // 3. Sort (one launch, one block a row): the K survivors as 64-bit keys
 //    (flipped value above, index below) with a bitonic network, in
 //    registers and warp shuffles for the short strides and in shared
@@ -324,6 +337,10 @@ __global__ void __launch_bounds__(kThreads) tie_count_kernel(
   const int entries = chunks * kWarps;
   int2* ro = offs + row * entries;
   const int entry = blockIdx.x * kWarps + warp;
+  // v* the row's smallest key and none above it with its 20-bit prefix:
+  // pass 2's count of the prefix in each share is that share's ties
+  const int ties = __ldcg(&rw[kHist + 2 * kPassWords + (vstar & 0xfffu)]);
+  if (c_gt == rw[kAbove + 2] && c_gt + ties == p.len) return;
   int eq = 0;
   if (ro[entry].x > 0) {
     const int share = chunk / kWarps;
@@ -414,6 +431,77 @@ __global__ void __launch_bounds__(kThreads) tie_write_kernel(
       const int rank = at + __popc(be & below);
       if (tie && rank < t) out[rank] = sort_key(key[u], e);
       at += __popc(be);
+    }
+  }
+}
+
+// Pass 0 over a panel whose rows are not contiguous, fused with a
+// row-major copy of it: a block takes 32 rows by kCopyCols columns in
+// 32 x 32 tiles through shared memory (read with consecutive threads on
+// consecutive rows, coalesced where the panel is column-major; the next
+// tile's loads are in flight while a tile is written out), writes
+// each tile row-major into `out` and histograms its top 8 bits a lane a
+// row (rows of the histogram padded so that lanes meet distinct banks),
+// then adds the histograms and their summaries into the rows' global
+// ones, as radix_pass_kernel<0> does.  Columns n..len-1 count as -inf.
+constexpr int kCopyCols = 256;
+
+__global__ void __launch_bounds__(kThreads) copy_pass0_kernel(
+    Panel p, int rows, float* __restrict__ out, int* __restrict__ ws) {
+  __shared__ float tile[32][33];
+  __shared__ int hist[32][257];
+  const int r0 = blockIdx.y * 32;
+  const int c_begin = blockIdx.x * kCopyCols;
+  const int c_end = min(c_begin + kCopyCols, p.len);
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < 32 * 257; i += kThreads) (&hist[0][0])[i] = 0;
+  // a thread's keys of the next tile: loaded while this tile is written
+  float next[32 / kWarps];
+  auto load = [&](int c0) {
+#pragma unroll
+    for (int u = 0; u < 32 / kWarps; ++u) {
+      const int r = r0 + tx;
+      const int c = c0 + ty + u * kWarps;
+      next[u] = r < rows && c < p.n ? p.scores[r * p.s_b + c * p.s_n]
+                                    : -INFINITY;
+    }
+  };
+  load(c_begin);
+  for (int c0 = c_begin; c0 < c_end; c0 += 32) {
+    __syncthreads();  // the last tile's readers are done; hist is zeroed
+#pragma unroll
+    for (int u = 0; u < 32 / kWarps; ++u) tile[ty + u * kWarps][tx] = next[u];
+    if (c0 + 32 < c_end) load(c0 + 32);
+    __syncthreads();
+    for (int j = ty; j < 32; j += kWarps) {
+      const int r = r0 + j;
+      const int c = c0 + tx;
+      if (r < rows && c < p.n) {
+        out[static_cast<int64_t>(r) * p.n + c] = tile[tx][j];
+      }
+      const int rr = r0 + tx;  // the histogram: lane = row
+      const int cc = c0 + j;
+      if (rr < rows && cc < c_end) {
+        atomicAdd(&hist[tx][asc_key(tile[j][tx]) >> 24], 1);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * 256; i += kThreads) {
+    const int r = i >> 8;
+    const int bin = i & 255;
+    if (r0 + r < rows && hist[r][bin]) {
+      atomicAdd(&ws[(r0 + r) * kRowWords + kHist + bin], hist[r][bin]);
+    }
+  }
+  for (int i = threadIdx.x; i < 32 * kCoarse; i += kThreads) {
+    const int r = i / kCoarse;
+    const int b = i % kCoarse;
+    const int sum = hist[r][4 * b] + hist[r][4 * b + 1] + hist[r][4 * b + 2] +
+                    hist[r][4 * b + 3];
+    if (r0 + r < rows && sum) {
+      atomicAdd(&ws[(r0 + r) * kRowWords + kHist + kBins + b], sum);
     }
   }
 }
@@ -516,13 +604,15 @@ extern "C" long long flexvec_topk_workspace(int rows, int chunks, int k) {
 // scores[r*s_b + e*s_n] for e < n and -inf for n <= e < max(n, k).  Each
 // row is cut into `chunks` chunks of `chunk` columns (a multiple of
 // 1024); sort_n is a power of two >= k whose keys fit
-// in shared memory.  vals (rows x k) f32, idx (rows x k) int32.  Enqueues
-// a memset and kPasses + 3 launches on `stream`, allocates nothing,
-// returns the first CUDA error.
+// in shared memory.  vals (rows x k) f32, idx (rows x k) int32.  `copy`
+// is null, or rows x n f32 that receives a row-major copy of the panel
+// first (for a panel with s_n != 1).  Enqueues a memset and kPasses + 3
+// launches (one more with `copy`) on `stream`, allocates nothing, returns
+// the first CUDA error.
 extern "C" int flexvec_topk(const void* scores, long long s_b, long long s_n,
                             int n, int rows, int k, int chunk, int chunks,
-                            int sort_n, void* workspace, void* vals,
-                            void* idx, void* stream) {
+                            int sort_n, void* workspace, void* copy,
+                            void* vals, void* idx, void* stream) {
   if (rows <= 0 || k <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* ws = static_cast<int*>(workspace);
@@ -531,11 +621,19 @@ extern "C" int flexvec_topk(const void* scores, long long s_b, long long s_n,
       offs + (long long)rows * chunks * kWarps);
   cudaError_t err = cudaMemsetAsync(ws, 0, 4ll * rows * kRowWords, st);
   if (err != cudaSuccess) return err;
-  const Panel p{static_cast<const float*>(scores), s_b, s_n, n,
-                n > k ? n : k};
+  Panel p{static_cast<const float*>(scores), s_b, s_n, n, n > k ? n : k};
+  if (copy != nullptr) {  // pass 0 and the row-major copy in one launch
+    copy_pass0_kernel<<<dim3((p.len + kCopyCols - 1) / kCopyCols,
+                             (rows + 31) / 32),
+                        kThreads, 0, st>>>(p, rows, static_cast<float*>(copy),
+                                           ws);
+    p = Panel{static_cast<const float*>(copy), n, 1, n, p.len};
+  }
   const dim3 grid(chunks, rows);
-  radix_pass_kernel<0><<<grid, kThreads, 0, st>>>(p, chunk, chunks, k, ws,
-                                                  offs, surv);
+  if (copy == nullptr) {
+    radix_pass_kernel<0><<<grid, kThreads, 0, st>>>(p, chunk, chunks, k, ws,
+                                                    offs, surv);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   radix_pass_kernel<1><<<grid, kThreads, 0, st>>>(p, chunk, chunks, k, ws,
                                                   offs, surv);

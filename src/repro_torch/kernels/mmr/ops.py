@@ -2,9 +2,14 @@
 
 Same name and arguments as ``repro.kernels.mmr.ops.mmr_select`` minus the
 interpret switch: a CPU tensor takes the plain version (``ref.py``), a
-CUDA tensor launches ``csrc/mmr.cu``: one cluster of 8 CTAs a query, the
-pool's live rows held in the CTAs' shared memory (rows that do not fit are
-read from global memory by the same kernel).  ``lam`` is a scalar or a
+CUDA tensor launches ``csrc/mmr.cu``: one cluster of C CTAs a query, one
+CTA an SM, C chosen from (B, n, d) by ``kernel.plan`` so that the batch's
+queries are resident at once (2 CTAs a query at B = 64, 16 at B = 1);
+each CTA keeps its share of the pool's live rows in shared memory, and
+in registers where that falls short (rows that do not fit are read from
+global memory by the same kernel); a step is one exchange of candidates
+by st.async.  Picks equal the plain version's (each dot one FMA chain in
+column order, as cuBLAS's f32 gram rounds).  ``lam`` is a scalar or a
 (B,) vector (the scalar broadcasts here), so one launch serves plans with
 different lambdas.  Padding slots carry rel = NEG and are never loaded;
 the kernel takes any n, so nothing is padded to the TPU's 128 multiples.
@@ -25,7 +30,7 @@ from repro_torch.kernels.mmr.ref import NEG, mmr_ref
 
 __all__ = ["NEG", "mmr_select"]
 
-MAX_POOL = 25000  # a CTA keeps 13 bytes of state for each of n / 8 slots
+MAX_POOL = 25000  # a CTA keeps 12 bytes of state for each of n / C slots
 _count_lock = threading.Lock()
 
 

@@ -4,8 +4,11 @@ Same name and arguments as ``repro.kernels.topk.ops.topk`` minus the TPU
 block sizes and interpret switch: a CPU tensor takes the plain version
 (``ref.py``), a CUDA tensor runs ``csrc/topk.cu``: a radix select of each
 row's K-th key, a compaction of the K survivors in index order and one
-sort of them, all enqueued by one call with no host synchronisation.
-``launches`` counts every kernel launch (six a call).  A meta tensor
+sort of them, all enqueued by one call with no host synchronisation.  A
+panel whose rows are not contiguous (a filter batch's masked panel is
+column-major) is copied row-major by the first radix pass, into a buffer
+allocated here.  ``launches`` counts every kernel launch (six a call).
+A meta tensor
 (``launch/dryrun.py``) gets its outputs' shapes, with nothing launched.
 """
 
@@ -68,7 +71,9 @@ def topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     chunk, chunks = chunking(b, max(n, k))
     ws = torch.empty(-(-kernel.workspace_bytes(b, chunks, k) // 8),
                      dtype=torch.int64, device=dev)
-    kernel.launch(scores, k, chunk, chunks, _pow2(k), ws, vals, idx)
+    copy = (None if scores.stride(1) == 1 or n == 1
+            else torch.empty((b, n), dtype=torch.float32, device=dev))
+    kernel.launch(scores, k, chunk, chunks, _pow2(k), ws, copy, vals, idx)
     with _count_lock:  # shard workers launch from several threads
         topk.launches += kernel.LAUNCHES
     return vals, idx

@@ -279,6 +279,51 @@ def test_topk_adversarial_ties_match_plain(cuda, n, k):
     assert all(len(set(r.tolist())) == k for r in i.cpu())
 
 
+def _masked(gen, live_counts, n, device):
+    """Scores -inf but at each row's live columns, masked as HopperBackend
+    masks a filter batch: the column-major ``torch.where(mask.T, ...)``."""
+    b = len(live_counts)
+    mask = torch.zeros((n, b), dtype=torch.bool, device=device)
+    for r, live in enumerate(live_counts):
+        mask[torch.randperm(n, generator=gen, device=device)[:live], r] = True
+    panel = torch.randn(b, n, generator=gen, device=device)
+    return torch.where(mask.T, panel, float("-inf"))
+
+
+@pytest.mark.parametrize("layout", ["column-major", "row-major"])
+def test_topk_masked_panel_matches_plain(cuda, layout):
+    """A filter batch's (32, 240000) panel at K = 2,048: rows with fewer
+    than K live keys (v* is -inf), exactly K, and more, in the layout the
+    mask gives and row-major; six launches either way (the first pass
+    copies the column-major panel row-major)."""
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    k = 2048
+    live = [50] * 20 + [0, k - 1, k, k + 1] + [6_000, 24_000, 48_000,
+                                                60_000, 107_800, 10_000,
+                                                20_000, 240_000]
+    s = _masked(gen, live, 240_000, cuda)
+    if layout == "row-major":
+        s = s.contiguous()
+    before = topk.launches
+    v, i = topk(s, k)
+    launches = topk.launches - before
+    vr, ir = topk_ref(s, k)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir) and torch.equal(v, vr)
+    assert launches == 6
+    assert all(len(set(r.tolist())) == k for r in i.cpu())
+
+
+@pytest.mark.parametrize("live", [50, 2047, 2048, 5000])
+def test_topk_masked_single_row_matches_plain(cuda, live):
+    gen = torch.Generator(device=cuda).manual_seed(41 + live)
+    s = _masked(gen, [live], 240_000, cuda)
+    v, i = topk(s, 2048)
+    vr, ir = topk_ref(s, 2048)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir) and torch.equal(v, vr)
+
+
 def test_topk_with_no_columns_returns_neg_inf_padding(cuda):
     s = torch.empty((3, 0), device=cuda)
     v, i = topk(s, 5)
@@ -314,20 +359,101 @@ def test_mmr_matches_plain(cuda, lam):
 @pytest.mark.parametrize("lam", [0.7, 0.0, 1.0])
 @pytest.mark.parametrize("d", [128, 254])
 def test_mmr_pool_beyond_shared_memory_matches_plain(cuda, lam, d):
-    """A pool larger than the cluster's shared memory holds: the rows that
-    do not fit are read from global memory by the same kernel."""
+    """A pool larger than the cluster's registers and shared memory hold:
+    the rows that do not fit are read from global memory by the same
+    kernel."""
     from repro_torch.kernels.mmr import kernel
 
     gen = torch.Generator(device=cuda).manual_seed(13)
-    b, n, pool, k = 2, 8192, 6000, 100
-    shape = kernel.shape(n, d + (-d) % 4)
+    b, n, pool, k = 2, 24_576, 20_000, 100
+    shape = kernel.shape(b, n, d + (-d) % 4, live=pool)
     assert shape["max_active_clusters"] > 0
-    assert shape["rows_in_smem"] * shape["cluster"] < pool
+    assert shape["global_rows"] > 0
     e = _unit_rows(gen, b, n, d, device=cuda)
     rel = torch.randn(b, n, generator=gen, device=cuda)
     rel[:, pool:] = NEG
     idx, val = mmr_select(e, rel, k, lam)
     ir, vr = mmr_ref(e, rel, k, torch.full((b,), lam, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ir)
+    torch.testing.assert_close(val, vr, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("lam", [0.7, 0.0])
+def test_mmr_flexvec_batch_runs_in_one_wave(cuda, lam):
+    """flexvec's batch: 64 pools of 1500 live rows in a 2048 bucket,
+    d = 128, k = 500, all resident at once (one wave), every live row on
+    chip; indices equal to the plain version's."""
+    from repro_torch.kernels.mmr import kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    b, n, pool, d, k = 64, 2048, 1500, 128, 500
+    shape = kernel.shape(b, n, d, live=pool)
+    assert shape["waves"] == 1 and shape["global_rows"] == 0
+    e = _unit_rows(gen, b, n, d, device=cuda)
+    rel = torch.randn(b, n, generator=gen, device=cuda) * 0.1
+    rel[:, pool:] = NEG
+    idx, val = mmr_select(e, rel, k, lam)
+    ir, vr = mmr_ref(e, rel, k, torch.full((b,), lam, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ir)
+    torch.testing.assert_close(val, vr, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,d", [(4, 2048, 128), (64, 1500, 128),
+                                   (1, 2048, 256)])
+def test_plain_gram_is_a_column_order_fma_chain(cuda, b, n, d):
+    """K3's picks equal the plain version's because K3 computes each dot
+    as one fused multiply-add chain in column order, which is how the
+    plain version's f32 gram (``torch.bmm``, cuBLAS) rounds each entry on
+    the H100: emulated here in f64 (each product exact, each sum rounded
+    to f32) for 64 rows of the gram, at the pools' shapes."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    e = _unit_rows(gen, b, n, d, device=cuda)
+    gram = torch.bmm(e, e.transpose(1, 2))[:, :64]
+    head, rows = e[:, :64].double(), e.double()
+    acc = torch.zeros(b, 64, n, dtype=torch.float64, device=cuda)
+    for x in range(d):
+        acc = (head[:, :, x, None] * rows[:, None, :, x] + acc).float().double()
+    assert torch.equal(acc.float(), gram)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_mmr_wide_rows_match_plain(cuda, b):
+    """d = 256 (two-tower's item vectors): 4 register rows a group, the
+    rest in shared memory."""
+    gen = torch.Generator(device=cuda).manual_seed(29 + b)
+    n, pool, d, k = 2048, 1500, 256, 500
+    e = _unit_rows(gen, b, n, d, device=cuda)
+    rel = torch.randn(b, n, generator=gen, device=cuda) * 0.1
+    rel[:, pool:] = NEG
+    lam = torch.linspace(0.0, 1.0, b, device=cuda)
+    idx, val = mmr_select(e, rel, k, lam)
+    ir, vr = mmr_ref(e, rel, k, lam)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ir)
+    torch.testing.assert_close(val, vr, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cluster", [None, 1])
+def test_mmr_pool_of_6000_matches_plain(cuda, cluster):
+    """(2, 8192, 6000): on chip at the plan's 8 CTAs a query, and through
+    the global-row path at one CTA a query (5,488 rows a step from global
+    memory)."""
+    from repro_torch.kernels.mmr import kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    b, n, pool, d, k = 2, 8192, 6000, 128, 100
+    shape = kernel.shape(b, n, d, live=pool, cluster=cluster)
+    assert (shape["global_rows"] > 0) == (cluster == 1)
+    e = _unit_rows(gen, b, n, d, device=cuda)
+    rel = torch.randn(b, n, generator=gen, device=cuda)
+    rel[:, pool:] = NEG
+    lam = torch.full((b,), 0.7, device=cuda)
+    idx = torch.empty((b, k), dtype=torch.int32, device=cuda)
+    val = torch.empty((b, k), device=cuda)
+    kernel.launch(e, rel, lam, k, idx, val, cluster=cluster)
+    ir, vr = mmr_ref(e, rel, k, lam)
     torch.cuda.synchronize()
     assert torch.equal(idx, ir)
     torch.testing.assert_close(val, vr, atol=1e-5, rtol=1e-5)
