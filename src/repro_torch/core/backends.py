@@ -58,6 +58,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core import modulations as M
 
 __all__ = [
@@ -121,6 +122,13 @@ def _days_f32(days_ago: Optional[np.ndarray], n: int) -> np.ndarray:
 
 def _empty_candidates() -> Candidates:
     return np.empty(0, np.int64), np.empty(0, np.float32)
+
+
+def _to_host(*tensors) -> List[np.ndarray]:
+    """The tensors copied to the host: the copies wait for the card, so
+    they are the ``device_wait`` span."""
+    with spans.span("device_wait"):
+        return [t.cpu().numpy() for t in tensors]
 
 
 def _slice_candidates(idx: np.ndarray, vals: np.ndarray,
@@ -802,8 +810,7 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
         import torch
 
         if not self._use_mmr(plans, fused_mmr):
-            return _slice_candidates(i.cpu().numpy(), v.cpu().numpy(),
-                                     widths)
+            return _slice_candidates(*_to_host(i, v), widths)
         # fused diverse tail: ONE mmr launch over every diverse plan's
         # device-resident pool (per-plan lambdas; a plan's slots past its
         # true pool width carry NEG) — only the final k come back
@@ -828,9 +835,9 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
             sel, _ = mmr_select(emb, torch.where(live, pool_v, _MMR_NEG),
                                 max(kf[j] for j in div), lams)
             sel = sel.long()
-            picks = (torch.gather(pool_i, 1, sel).cpu().numpy(),
-                     torch.gather(pool_v, 1, sel).cpu().numpy())
-        out = _slice_candidates(i.cpu().numpy(), v.cpu().numpy(), widths)
+            picks = _to_host(torch.gather(pool_i, 1, sel),
+                             torch.gather(pool_v, 1, sel))
+        out = _slice_candidates(*_to_host(i, v), widths)
         for j, p in enumerate(plans):
             if p.diverse is not None and kf[j] == 0:
                 out[j] = _empty_candidates()

@@ -41,6 +41,7 @@ import numpy as np
 # tables live on the CONNECTION, so names must be process-unique.
 _TEMP_IDS = itertools.count(1)
 
+from repro_torch import spans
 from repro_torch.core import grammar
 from repro_torch.core import modulations as M
 from repro_torch.core.backends import ExecutionBackend, get_backend
@@ -231,6 +232,8 @@ class Materializer:
         # included — micro-batch and pipeline with all other traffic
         # instead of scoring synchronously on this thread
         self.serving = serving
+        # result tables this materializer made on ``conn`` (they outlive it)
+        self.temp_tables = 0
 
     # -- public API ----------------------------------------------------------
 
@@ -252,7 +255,7 @@ class Materializer:
         rewritten = self.rewrite(sql)
         if not _READONLY_RE.match(rewritten):
             raise MaterializeError("only read-only SELECT/WITH statements are allowed")
-        with self.lock:
+        with self.lock, spans.span("sql.statement"):
             try:
                 cur = self.conn.execute(rewritten, params)
             except sqlite3.Error as e:
@@ -287,9 +290,12 @@ class Materializer:
         raise MaterializeError(f"unknown pseudo-function {call.func}")
 
     def _fresh_table(self, prefix: str) -> str:
+        """Names a new result table, which the caller creates, and counts
+        it in ``temp_tables``."""
         name = f"_{prefix}_{next(_TEMP_IDS)}"
         with self.lock:
             self.conn.execute(f"DROP TABLE IF EXISTS {name}")
+            self.temp_tables += 1
         return name
 
     def _materialize_vec_ops(self, call: PseudoCall) -> str:
@@ -372,7 +378,7 @@ class Materializer:
         if prefilter_sql is not None and prefilter_sql.strip():
             if not _READONLY_RE.match(prefilter_sql):
                 raise MaterializeError(f"{kind} pre-filter must be a SELECT")
-            with self.lock:
+            with self.lock, spans.span("sql.prefilter"):
                 try:
                     rows = self.conn.execute(prefilter_sql).fetchall()
                 except sqlite3.Error as e:
@@ -393,9 +399,10 @@ class Materializer:
         try:
             plan = None
             if parsed is not None:
-                plan = grammar.build_plan(
-                    parsed, self.cache.embed_fn,
-                    self.cache.embeddings_for_ids, self._lexical_scores)
+                with spans.span("parse"):
+                    plan = grammar.build_plan(
+                        parsed, self.cache.embed_fn,
+                        self.cache.embeddings_for_ids, self._lexical_scores)
             base_search = None
             if self.serving is not None:
                 # hand the parsed plan over so admission skips the
@@ -426,20 +433,22 @@ class Materializer:
         ins_cols = [c for c in cols if c != "snippet"]
         ph = ",".join("?" * len(ins_cols))
         with self.lock:
-            table = self._fresh_table(kind)
-            self.conn.execute(f"CREATE TEMP TABLE {table} ({col_sql})")
-            self.conn.executemany(
-                f"INSERT OR REPLACE INTO {table} ({', '.join(ins_cols)}) "
-                f"VALUES ({ph})",
-                results,
-            )
+            with spans.span("sql.temp_table"):
+                table = self._fresh_table(kind)
+                self.conn.execute(f"CREATE TEMP TABLE {table} ({col_sql})")
+                self.conn.executemany(
+                    f"INSERT OR REPLACE INTO {table} ({', '.join(ins_cols)}) "
+                    f"VALUES ({ph})",
+                    results,
+                )
             # snippet via UPDATE join: immune to SQLite's host-parameter
             # limit
-            self.conn.execute(
-                f"UPDATE {table} SET snippet = ("
-                f"SELECT substr(c.content, 1, 96) FROM _raw_chunks c "
-                f"WHERE c.id = {table}.id)"
-            )
+            with spans.span("sql.snippet"):
+                self.conn.execute(
+                    f"UPDATE {table} SET snippet = ("
+                    f"SELECT substr(c.content, 1, 96) FROM _raw_chunks c "
+                    f"WHERE c.id = {table}.id)"
+                )
         return table
 
     def _materialize_keyword(self, call: PseudoCall) -> str:

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core import grammar
 from repro_torch.core import modulations as M
 from repro_torch.core.backends import (ExecutionBackend, PrefilterRouter,
@@ -234,9 +235,12 @@ class VectorCache:
         embedder = embed_fn or self.embed_fn
         if embedder is None:
             raise ValueError("VectorCache.search requires an embed function")
-        plan = grammar.parse(tokens, embedder, self.embeddings_for_ids,
-                             lexical_fn or self.lexical_fn)
-        return self.search_plan(plan, candidate_ids, now=now, engine=engine)
+        with spans.root("search"):
+            with spans.span("parse"):
+                plan = grammar.parse(tokens, embedder, self.embeddings_for_ids,
+                                     lexical_fn or self.lexical_fn)
+            return self.search_plan(plan, candidate_ids, now=now,
+                                    engine=engine)
 
     def search_full(
         self,
@@ -267,9 +271,10 @@ class VectorCache:
             if self.embed_fn is None:
                 raise ValueError(
                     "VectorCache.search_full requires an embed function")
-            plan = grammar.parse(tokens, self.embed_fn,
-                                 self.embeddings_for_ids,
-                                 lexical_fn or self.lexical_fn)
+            with spans.span("parse"):
+                plan = grammar.parse(tokens, self.embed_fn,
+                                     self.embeddings_for_ids,
+                                     lexical_fn or self.lexical_fn)
         if base_search is not None:
             base = base_search(plan, plan.pool)
         else:
@@ -332,7 +337,7 @@ class VectorCache:
             # scratch matrix — same device-pass/host-tail split as the
             # full-corpus path, same lock discipline.  Non-strict: ids
             # deleted between the Phase-1 SQL and this pass drop silently.
-            with self.store.lock:
+            with spans.span("device_pass"), self.store.lock:
                 segs = self.store.segments
                 n_live = self.store.n_live
                 if (plan.decay is not None
@@ -344,11 +349,12 @@ class VectorCache:
                     backend, self.store, segs, [plan], [k], candidate_ids,
                     now=ref, router=self.prefilter, counters=self.fused,
                     score_bias=bias)
-            (results,) = finalize_segment_candidates(
-                segs, [plan], [k], selected,
-                mmr_done=backend.device_mmr, counters=self.fused)
-            return finalize_fusion(plan, results, k, store=self.store,
-                                   candidate_ids=candidate_ids)
+            with spans.span("host_tail"):
+                (results,) = finalize_segment_candidates(
+                    segs, [plan], [k], selected,
+                    mmr_done=backend.device_mmr, counters=self.fused)
+                return finalize_fusion(plan, results, k, store=self.store,
+                                       candidate_ids=candidate_ids)
 
         # Full corpus: the two-stage segmented pipeline.  The DEVICE PASS
         # (score_select_segments) runs under the store lock so ingest /
@@ -356,7 +362,7 @@ class VectorCache:
         # (finalize_segment_candidates: gather + MMR + id resolution)
         # needs only the immutable segment snapshot, so it runs outside
         # the lock — the same split the async engine pipelines.
-        with self.store.lock:
+        with spans.span("device_pass"), self.store.lock:
             segs = self.store.segments
             if plan.decay is not None and not self.store.has_timestamps:
                 raise ValueError("decay: requires timestamps in the cache")
@@ -366,7 +372,8 @@ class VectorCache:
             selected = score_select_segments(
                 backend, segs, [plan], [k], now=ref, counters=self.fused,
                 score_bias=bias)
-        (results,) = finalize_segment_candidates(
-            segs, [plan], [k], selected, mmr_done=backend.device_mmr,
-            counters=self.fused)
-        return finalize_fusion(plan, results, k, store=self.store)
+        with spans.span("host_tail"):
+            (results,) = finalize_segment_candidates(
+                segs, [plan], [k], selected, mmr_done=backend.device_mmr,
+                counters=self.fused)
+            return finalize_fusion(plan, results, k, store=self.store)

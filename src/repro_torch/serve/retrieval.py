@@ -41,6 +41,7 @@ from repro_torch.core.backends import (ExecutionBackend, HopperBackend,
 from repro_torch.core.materializer import MaterializeError, Materializer
 from repro_torch.core.vectorcache import VectorCache
 from repro_torch.embed import HashEmbedder
+from repro_torch import spans
 from repro_torch.sqlio.presets import run_preset
 from repro_torch.sqlio.schema import (delete_chunks, insert_chunks,
                                 load_embedding_matrix)
@@ -101,6 +102,9 @@ class RetrievalService:
         self.engine = HopperBackend() if engine is None else get_backend(engine)
         self.query_count = 0
         self.error_count = 0
+        # result tables the materializers made on ``conn``; they stay
+        # there for the connection's life
+        self.sql_temp_tables = 0
         self._serving = None  # lazy BatchedRetrievalEngine (see serving())
         self._serving_lock = threading.Lock()
         self._shard_group = None  # lazy ProcessGroup (see shard_group())
@@ -115,7 +119,13 @@ class RetrievalService:
         (rewritten) statement — same contract as ``Materializer.execute``,
         so parameterized SQL no longer needs a hand-built Materializer.
         """
-        t0 = time.time()
+        t0 = time.perf_counter()
+        with spans.root("flex_search"):
+            result = self._flex_search(query, params)
+        result.latency_ms = (time.perf_counter() - t0) * 1e3
+        return result
+
+    def _flex_search(self, query: str, params: Sequence) -> SearchResult:
         self.query_count += 1
         try:
             if query.strip().startswith("@"):
@@ -126,19 +136,20 @@ class RetrievalService:
                 cols = ["section", "data"]
                 for key, (c, r) in out.items():
                     rows.append((key, {"columns": c, "rows": r}))
-                return SearchResult(True, cols, rows,
-                                    latency_ms=(time.time() - t0) * 1e3)
+                return SearchResult(True, cols, rows)
             mz = Materializer(self.conn, self.cache, now=self.now,
                               engine=self.engine, serving=self._serving,
                               lock=self._conn_lock)
-            cols, rows = mz.execute(query, params)
-            return SearchResult(True, cols, rows,
-                                latency_ms=(time.time() - t0) * 1e3)
+            try:
+                cols, rows = mz.execute(query, params)
+            finally:
+                with self._conn_lock:
+                    self.sql_temp_tables += mz.temp_tables
+            return SearchResult(True, cols, rows)
         except (MaterializeError, sqlite3.Error, KeyError) as e:
             # explicit failure -> the agent rewrites and retries (paper §7)
             self.error_count += 1
-            return SearchResult(False, error=f"{type(e).__name__}: {e}",
-                                latency_ms=(time.time() - t0) * 1e3)
+            return SearchResult(False, error=f"{type(e).__name__}: {e}")
 
     def search(
         self,
@@ -428,6 +439,10 @@ class RetrievalService:
         ``fused`` (device_mmr / host_pool_transfers / panel_batches)
         tracks how often Phase-2 finished entirely on device and how
         often a host pool round-trip was still needed.
+        ``sql`` (temp_tables) counts the result tables the service's
+        materializers have created on its connection: every retrieval
+        pseudo-call of a statement makes one, and none is dropped, so it
+        grows with the statements served (a leak gauge).
         """
         out: Dict[str, Any] = {
             "engine": self.engine.name,
@@ -436,6 +451,7 @@ class RetrievalService:
             "store": self.cache.store.stats(),
             "prefilter": self.cache.prefilter.stats(),
             "fused": self.cache.fused.stats(),
+            "sql": {"temp_tables": self.sql_temp_tables},
         }
         if self._serving is not None:
             out["serving"] = self._serving.stats()

@@ -1351,3 +1351,63 @@ def test_hopper_diverse_query_on_a_pool_shorter_than_its_bucket(cuda):
         _assert_same_ranking(*(np.array(c) for r in (got["cuda"],
                                                       got["cpu"])
                                for c in zip(*r)))
+
+
+def test_spans_stay_off_the_device_trace(cuda, monkeypatch):
+    """Composed queries through ``flex_search`` under the benchmark's
+    ``Tracer``, with spans recording and again with the recorder's check
+    patched off: the device trace reads a busy time inside its window and
+    the same device ops either way, and no span reaches it."""
+    import sys
+    import time
+    import types
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root / "perfbench") not in sys.path:
+        sys.path.insert(0, str(root / "perfbench"))
+    import run as bench_run
+    from harness import spec, traffic
+    from harness.trace import Tracer
+
+    from repro_torch import spans
+
+    bench = spec.load(root)
+    built = bench_run.build(root, bench, "corpus_240k", 2**31 + 41, "cuda",
+                            {"chunks": 20_000, "sessions": 400})
+    mix = spec.traffic(root, "sql_composed")
+    call = built.system.entry(mix)
+    stream = traffic.QueryStream(mix, 2**31 + 41)
+    queries = [stream.request(i) for i in range(8)]
+    for q in queries[:3]:
+        call(q)
+    torch.cuda.synchronize()
+
+    def traced():
+        tracer, records = Tracer(), []
+        with tracer:
+            with tracer.window():
+                for q in queries:
+                    t0 = time.perf_counter()
+                    call(q)
+                    records.append(types.SimpleNamespace(
+                        start=t0, end=time.perf_counter()))
+                torch.cuda.synchronize()
+        return tracer.read(records)
+
+    try:
+        monkeypatch.setattr(spans, "RECORDER", spans.Recorder())
+        on = traced()
+        recorded = spans.snapshot()
+        assert sum(s.parent < 0 for s in recorded.spans) == len(queries)
+        monkeypatch.setattr(spans, "profiling", lambda: False)
+        off = traced()
+        assert spans.snapshot() == recorded
+    finally:
+        built.system.release()
+    names = {s.name for s in recorded.spans}
+    for summary in (on, off):
+        assert 0.0 < summary["busy_s"] <= summary["window_s"]
+        assert not names & set(summary["seconds"])
+        assert not any("annotation" in op for op in summary["seconds"])
+    assert set(on["seconds"]) == set(off["seconds"])
