@@ -10,7 +10,8 @@ the program through its own API, warms the cell's own shapes, drives the
 cell's closed-loop clients for ``--seconds``, and then holds the rows the
 window returned to the plain reference.  ``--trace 1`` runs the window
 under ``torch.profiler`` and reports the cell's per-layer metrics in
-place of its end-to-end ones.
+place of its end-to-end ones; where the trace lost records of the window
+(``harness/trace.py``, ``verify``) it exits non-zero and prints no result.
 """
 
 import time
@@ -33,6 +34,7 @@ from harness import check, spec, traffic, window  # noqa: E402
 from harness import corpus as C  # noqa: E402
 from harness import reference as R  # noqa: E402
 from harness.system import System  # noqa: E402
+from harness.trace import IncompleteTrace  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -107,10 +109,10 @@ def drive(built: Built, mix, seed: int, seconds: float, trace: bool,
         records, w0, w1 = window.run(call, stream.request, clients, seconds)
         _sync(torch, device)
     after = system.counters()
+    delta = {k: after[k] - before.get(k, 0) for k in after}
     return types.SimpleNamespace(
-        records=records, start=w0, end=w1, stream=stream,
-        delta={k: after[k] - before.get(k, 0) for k in after},
-        summary=tracer.read(records) if tracer is not None else None)
+        records=records, start=w0, end=w1, stream=stream, delta=delta,
+        summary=tracer.read(records, delta) if tracer is not None else None)
 
 
 def judge(built: Built, mix, seed: int, run) -> dict:
@@ -180,6 +182,7 @@ def run_cell(root: Path, bench, cell, seed: int, seconds: float,
         dev["busy_s"] = run.summary["busy_s"]
         dev["window_s"] = run.summary["window_s"]
         out["breakdown"] = run.summary["breakdown"]
+        out["trace"] = run.summary["verified"]
     out["counters"] = run.delta
     out["checks"] = checks
     return out
@@ -201,13 +204,20 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell['chips']} CUDA card(s); "
               "none or too few found", file=sys.stderr)
         return 2
-    out = run_cell(ROOT, bench, cell, args.seed, args.seconds,
-                   bool(args.trace), "cuda", T_START)
+    try:
+        out = run_cell(ROOT, bench, cell, args.seed, args.seconds,
+                       bool(args.trace), "cuda", T_START)
+    except IncompleteTrace as e:
+        print(f"{args.workload}: the trace is incomplete, no reading taken: "
+              f"{e}", file=sys.stderr)
+        return 4
     found = forbidden_modules()
     if found:
         print(f"loaded in this process: {found} (JAX or the JAX package)",
               file=sys.stderr)
         return 3
+    for name, reading in out.get("trace", {}).items():
+        print(f"trace {name} {json.dumps(reading)}", file=sys.stderr)
     for name, c in out["checks"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}",
               file=sys.stderr)

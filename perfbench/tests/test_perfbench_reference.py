@@ -2,23 +2,26 @@
 reference against the port's plain path, the control and a broken timed
 path against the limits, and the counts behind the rooflines."""
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 
 import control
 import run as bench_run
-from harness import check, roofline, spec, trace
+from harness import check, roofline, spec, trace, window
 from harness import corpus as C
 from harness import reference as R
 
 ROOT = bench_run.ROOT
 TINY = {"chunks": 3000, "sessions": 60}
 SEED = 2**31 + 17
+WINDOW_REQUESTS = 8   # the timed window of a run judged broken
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +103,17 @@ def _break_topk(monkeypatch):
     ("corpus_240k", "sql_composed"), ("corpus_1m", "composed_diverse")])
 def test_a_run_judges_a_broken_path_incorrect(bench, config, mix,
                                               monkeypatch):
+    """The timed window holds its first ``WINDOW_REQUESTS`` requests
+    whatever the CPU's speed: on a busy one a 0.4 s window held one, which
+    the broken path need not alter."""
+    run = window.run
+
+    def counted_window(call, request, clients, seconds, limit=None):
+        if limit is None:
+            seconds, limit = float("inf"), WINDOW_REQUESTS
+        return run(call, request, clients, seconds, limit=limit)
+
+    monkeypatch.setattr(window, "run", counted_window)
     w = {"name": f"{config}.{mix}", "config": config, "traffic": mix,
          "chips": 1}
     sound = bench_run.run_cell(ROOT, bench, w, SEED, 0.4, False, "cpu", 0.0,
@@ -152,6 +166,132 @@ def test_trace_window_survives_a_dropped_marker():
     s = trace.summarize(events, [], 10.0)
     assert s["window_s"] == pytest.approx(890e-6)        # 110 to 1000
     assert s["busy_s"] == pytest.approx(100e-6)
+    trace.verify(s, 890e-6, {"pem_score": 1})
+    assert s["launches"] == {"pem_score_kernel": 1}
+
+
+def _traced_window(lose):
+    """A traced window of a second, ten requests on the trace's clock (us),
+    each a K1 and a K3 launch, three markers at each end; the host's
+    seconds between the marker groups; the launch counters' change.
+    ``lose`` takes away what a trace that lost records would lack."""
+    start = [(trace.MARKER, t, 50) for t in (0, 70, 140)]
+    end = [(trace.MARKER, t, 50) for t in (1_000_000, 1_000_070, 1_000_140)]
+    work = [e for q in range(10) for e in (
+        ("pem_score_kernel", 1_000 + 90_000 * q, 60),
+        ("mmr_kernel", 1_100 + 90_000 * q, 900))]
+    host_s = (1_000_000 - 190) * 1e-6
+    if lose == "start":
+        start = []
+    elif lose == "end":
+        end = []
+    elif lose == "mmr":
+        work.pop()
+    elif lose == "clock":
+        host_s += 2 * trace.WINDOW_TOLERANCE_S
+    return start + work + end, host_s, {"pem_score": 10, "mmr": 10,
+                                        "topk": 60}
+
+
+@pytest.mark.parametrize("lose,check", [
+    ("", None), ("start", "window"), ("end", "window"), ("mmr", "launches"),
+    ("clock", "window")])
+def test_an_incomplete_trace_gives_no_reading(lose, check):
+    """A trace that lost a marker group, or a counted kernel's launch, or
+    whose window disagrees with the host's clock, raises naming the check
+    that missed; the whole trace passes both."""
+    events, host_s, launches = _traced_window(lose)
+    s = trace.summarize(events, [], 10.0)
+    with (pytest.raises(trace.IncompleteTrace, match=check) if check
+          else contextlib.nullcontext()):
+        readings = trace.verify(s, host_s, launches)
+    if not check:
+        assert readings["mmr_kernel"] == {"events": 10, "mmr": 10}
+        assert s["busy_s"] == pytest.approx(9_600e-6)
+
+
+class _HostClockTracer(trace.Tracer):
+    """The Tracer with the host's clock for the card's: markers at its
+    marks, a K1 and a K3 launch at each request's start; ``lose`` "end"
+    takes the end group away."""
+
+    lose = ""
+
+    def __init__(self):
+        self.marks = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def _mark(self):
+        before = time.perf_counter()
+        self.marks.append((before, before + 3 * 70e-6))
+
+    def read(self, records=(), launches=None):
+        self._starts = [r.start for r in records]
+        return super().read(records, launches)
+
+    def events(self):
+        groups = [[(trace.MARKER, b * 1e6 + 70 * i, 50) for i in range(3)]
+                  for b, _ in self.marks]
+        work = [(name, t * 1e6 + 1, 20) for t in self._starts
+                for name in ("pem_score_kernel", "mmr_kernel")]
+        if self.lose == "end":
+            groups[1] = []
+        return groups[0] + work + groups[1]
+
+
+@pytest.mark.parametrize("lose,check", [("end", "window"),
+                                        ("mmr", "launches")])
+def test_a_run_on_an_incomplete_trace_exits_nonzero(bench, monkeypatch,
+                                                    capsys, lose, check):
+    """run.py, driven through a whole traced run of the tiny cell on the
+    CPU, exits non-zero with the missed check named and prints no result
+    where the trace lost its end group or one of K3's launches.  K3's
+    counter then reads one launch more than the trace holds, so the trace
+    still names K3 however few requests the window held (on a busy CPU one:
+    losing its only record would leave K3 unnamed, and so unchecked)."""
+    import torch
+
+    from harness.system import System
+
+    calls = []
+    entry = System.entry
+
+    def counted_entry(self, mix):
+        call = entry(self, mix)
+
+        def counted(q):
+            calls.append(q)
+            return call(q)
+        return counted
+
+    reads = []
+
+    def counters(self):
+        # read before the window and after it; "mmr": one more after
+        reads.append(len(calls))
+        extra = int(lose == "mmr" and len(reads) > 1)
+        return {"pem_score": len(calls), "topk": 6 * len(calls),
+                "mmr": len(calls) + extra}
+
+    monkeypatch.setattr(System, "entry", counted_entry)
+    monkeypatch.setattr(System, "counters", counters)
+    monkeypatch.setattr(_HostClockTracer, "lose", lose)
+    monkeypatch.setattr(trace, "Tracer", _HostClockTracer)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    run_cell = bench_run.run_cell
+    monkeypatch.setattr(bench_run, "run_cell", lambda *a: run_cell(
+        *a[:6], "cpu", a[7], sizes=TINY))
+    rc = bench_run.main(["--workload", "corpus_240k.sql_composed", "--seed",
+                         str(SEED), "--seconds", "0.4", "--trace", "1"])
+    out = capsys.readouterr()
+    assert rc != 0 and out.out == ""
+    assert f"the trace is incomplete, no reading taken: {check}" in out.err
 
 
 def test_metrics_read_nothing_where_nothing_ran(bench):
