@@ -11,7 +11,8 @@ They are pseudo-functions recognized here, *before* SQLite sees the query:
    ``keyword``), running the embedded Phase-1 pre-filter SQL first,
 3. write each result to a temp table,
 4. rewrite the statement to reference the temp tables,
-5. hand the rewritten statement to SQLite (Phase 3 composition).
+5. hand the rewritten statement to SQLite (Phase 3 composition),
+6. drop the temp tables once the statement has returned or failed.
 
 Failure mode is an explicit ``MaterializeError`` (the agent retries), never
 silent misexecution.
@@ -232,8 +233,11 @@ class Materializer:
         # included — micro-batch and pipeline with all other traffic
         # instead of scoring synchronously on this thread
         self.serving = serving
-        # result tables this materializer made on ``conn`` (they outlive it)
+        # result tables this materializer made on ``conn``, and of them
+        # those it dropped again (``execute`` drops its own; a table made
+        # by a bare ``rewrite`` stays for its caller)
         self.temp_tables = 0
+        self.temp_tables_dropped = 0
 
     # -- public API ----------------------------------------------------------
 
@@ -252,53 +256,85 @@ class Materializer:
         if _DELETE_CHUNKS_RE.match(sql):
             with self.lock:
                 return self._execute_ingest_delete(sql, params)
-        rewritten = self.rewrite(sql)
-        if not _READONLY_RE.match(rewritten):
-            raise MaterializeError("only read-only SELECT/WITH statements are allowed")
-        with self.lock, spans.span("sql.statement"):
-            try:
-                cur = self.conn.execute(rewritten, params)
-            except sqlite3.Error as e:
-                raise MaterializeError(f"SQL error after rewrite: {e}") from e
-            cols = [d[0] for d in cur.description] if cur.description else []
-            return cols, cur.fetchall()
+        made: List[str] = []
+        try:
+            rewritten = self._rewrite(sql, made)
+            if not _READONLY_RE.match(rewritten):
+                raise MaterializeError(
+                    "only read-only SELECT/WITH statements are allowed")
+            with self.lock, spans.span("sql.statement"):
+                try:
+                    try:
+                        cur = self.conn.execute(rewritten, params)
+                    except sqlite3.Error as e:
+                        raise MaterializeError(
+                            f"SQL error after rewrite: {e}") from e
+                    cols = ([d[0] for d in cur.description]
+                            if cur.description else [])
+                    return cols, cur.fetchall()
+                finally:
+                    self._drop(made)
+        finally:
+            if made:   # a pseudo-call or the read-only check failed first
+                with self.lock:
+                    self._drop(made)
 
     def rewrite(self, sql: str) -> str:
-        """Phases 1+2: materialize every pseudo-call, rewrite references."""
+        """Phases 1+2: materialize every pseudo-call, rewrite references.
+
+        The result tables stay on the connection for the caller to drop;
+        :meth:`execute` drops its own.
+        """
+        return self._rewrite(sql, [])
+
+    def _rewrite(self, sql: str, made: List[str]) -> str:
+        """:meth:`rewrite`, adding each result table it creates to
+        ``made`` as soon as the table exists."""
         calls = _scan_calls(sql)
         out = []
         pos = 0
         for call in calls:
-            table = self._materialize(call)
+            ref = self._materialize(call, made)
             out.append(sql[pos : call.start])
-            out.append(table)
+            out.append(ref)
             pos = call.end
         out.append(sql[pos:])
         return "".join(out)
 
+    def _drop(self, made: List[str]) -> None:
+        """Drops the result tables named in ``made`` and empties it; the
+        caller holds the lock."""
+        while made:
+            self.conn.execute(f"DROP TABLE {made.pop()}")
+            self.temp_tables_dropped += 1
+
     # -- dispatch ------------------------------------------------------------
 
-    def _materialize(self, call: PseudoCall) -> str:
+    def _materialize(self, call: PseudoCall, made: List[str]) -> str:
+        """Materializes one pseudo-call; returns what the statement reads
+        in its place."""
         if call.func == "vec_ops":
-            return self._materialize_vec_ops(call)
+            return self._materialize_vec_ops(call, made)
         if call.func == "keyword":
-            return self._materialize_keyword(call)
+            return self._materialize_keyword(call, made)
         if call.func == "hybrid_search":
-            return self._materialize_hybrid_search(call)
+            return self._materialize_hybrid_search(call, made)
         if call.func == "vector_search":
-            return self._materialize_vector_search(call)
+            return self._materialize_vector_search(call, made)
         raise MaterializeError(f"unknown pseudo-function {call.func}")
 
-    def _fresh_table(self, prefix: str) -> str:
-        """Names a new result table, which the caller creates, and counts
-        it in ``temp_tables``."""
+    def _fresh_table(self, prefix: str, columns: str,
+                     made: List[str]) -> str:
+        """Creates a new result table of ``columns``, counts it in
+        ``temp_tables`` and adds it to ``made``; the caller holds the
+        lock."""
         name = f"_{prefix}_{next(_TEMP_IDS)}"
-        with self.lock:
-            self.conn.execute(f"DROP TABLE IF EXISTS {name}")
-            self.temp_tables += 1
+        self.conn.execute(f"CREATE TEMP TABLE {name} ({columns})")
+        self.temp_tables += 1
+        made.append(name)
         return name
 
-    def _materialize_vec_ops(self, call: PseudoCall) -> str:
+    def _materialize_vec_ops(self, call: PseudoCall, made: List[str]) -> str:
         if not 1 <= len(call.args) <= 2:
             raise MaterializeError(
                 f"vec_ops expects 1-2 string arguments, got {len(call.args)}"
@@ -311,10 +347,11 @@ class Materializer:
             if not isinstance(call.args[1], str):
                 raise MaterializeError("vec_ops: pre-filter must be a string")
             prefilter_sql = call.args[1]
-        return self._materialize_search("vec_ops", tokens=tokens,
+        return self._materialize_search("vec_ops", made, tokens=tokens,
                                         prefilter_sql=prefilter_sql)
 
-    def _materialize_hybrid_search(self, call: PseudoCall) -> str:
+    def _materialize_hybrid_search(self, call: PseudoCall,
+                                   made: List[str]) -> str:
         """``HYBRID_SEARCH('query'[, weight])`` — weighted lexical+vector
         fusion sugar: one text drives BOTH legs (``similar:`` through the
         fused device pipeline, ``keyword:`` through FTS5/BM25), fused as
@@ -341,9 +378,11 @@ class Materializer:
         parsed = grammar.ParsedTokens(similar=query, keyword=query,
                                       fuse_mode="weighted",
                                       fuse_weight=weight)
-        return self._materialize_search("hybrid", parsed=parsed, label=query)
+        return self._materialize_search("hybrid", made, parsed=parsed,
+                                        label=query)
 
-    def _materialize_vector_search(self, call: PseudoCall) -> str:
+    def _materialize_vector_search(self, call: PseudoCall,
+                                   made: List[str]) -> str:
         """``VECTOR_SEARCH('query')`` — pure-vector sugar (plain text, no
         grammar tokens): the hybrid surface's baseline counterpart."""
         if self.cache is None:
@@ -353,12 +392,13 @@ class Materializer:
             raise MaterializeError(
                 "vector_search expects exactly one query string")
         parsed = grammar.ParsedTokens(similar=call.args[0])
-        return self._materialize_search("vector", parsed=parsed,
+        return self._materialize_search("vector", made, parsed=parsed,
                                         label=call.args[0])
 
     def _materialize_search(
         self,
         kind: str,
+        made: List[str],
         *,
         tokens: Optional[str] = None,
         parsed: Optional["grammar.ParsedTokens"] = None,
@@ -367,10 +407,11 @@ class Materializer:
     ) -> str:
         """Shared Phase-1+2 entry behind every retrieval pseudo-call.
 
-        Materializes the unified result contract ``(id, score, snippet
-        [, cluster, central])`` — scores min-max normalized over the
-        result set (monotone: orderings are unchanged), snippet a content
-        prefix resolved by an UPDATE join (never a 1000-parameter INSERT).
+        Materializes the search's own columns ``(id, score[, cluster,
+        central])`` — scores min-max normalized over the result set
+        (monotone: orderings are unchanged) — and returns the unified
+        result contract ``(id, score, snippet[, cluster, central])`` over
+        them (:func:`_with_snippet`).
         """
         if self.cache is None:
             raise MaterializeError(f"{kind}: no VectorCache attached")
@@ -389,12 +430,9 @@ class Materializer:
                     # Paper §7: malformed pre-filters returning no rows are
                     # an agent error class; we surface an EMPTY result,
                     # not a crash.
-                    table = self._fresh_table(kind)
-                    self.conn.execute(
-                        f"CREATE TEMP TABLE {table} "
-                        "(id INTEGER PRIMARY KEY, score REAL, snippet TEXT)"
-                    )
-                    return table
+                    table = self._fresh_table(
+                        kind, "id INTEGER PRIMARY KEY, score REAL", made)
+                    return _with_snippet(table, ["id", "score"])
 
         try:
             plan = None
@@ -419,48 +457,36 @@ class Materializer:
             raise MaterializeError(f"{kind} failed: {e}") from e
 
         # the unified result-row contract: score min-max normalized,
-        # snippet after score, structural columns (§3.2) trailing
+        # structural columns (§3.2) after it; the snippet is the
+        # statement's to join
         if results:
             norm = M.minmax_normalize(
                 np.asarray([r[1] for r in results], np.float32))
             results = [(r[0], float(v)) + tuple(r[2:])
                        for r, v in zip(results, norm)]
-        cols = cols[:2] + ["snippet"] + cols[2:]
 
         decls = {"id": "INTEGER PRIMARY KEY", "score": "REAL",
-                 "snippet": "TEXT", "cluster": "INTEGER", "central": "REAL"}
+                 "cluster": "INTEGER", "central": "REAL"}
         col_sql = ", ".join(f"{c} {decls[c]}" for c in cols)
-        ins_cols = [c for c in cols if c != "snippet"]
-        ph = ",".join("?" * len(ins_cols))
-        with self.lock:
-            with spans.span("sql.temp_table"):
-                table = self._fresh_table(kind)
-                self.conn.execute(f"CREATE TEMP TABLE {table} ({col_sql})")
-                self.conn.executemany(
-                    f"INSERT OR REPLACE INTO {table} ({', '.join(ins_cols)}) "
-                    f"VALUES ({ph})",
-                    results,
-                )
-            # snippet via UPDATE join: immune to SQLite's host-parameter
-            # limit
-            with spans.span("sql.snippet"):
-                self.conn.execute(
-                    f"UPDATE {table} SET snippet = ("
-                    f"SELECT substr(c.content, 1, 96) FROM _raw_chunks c "
-                    f"WHERE c.id = {table}.id)"
-                )
-        return table
+        ph = ",".join("?" * len(cols))
+        with self.lock, spans.span("sql.temp_table"):
+            table = self._fresh_table(kind, col_sql, made)
+            self.conn.executemany(
+                f"INSERT OR REPLACE INTO {table} ({', '.join(cols)}) "
+                f"VALUES ({ph})",
+                results,
+            )
+        return _with_snippet(table, cols)
 
-    def _materialize_keyword(self, call: PseudoCall) -> str:
+    def _materialize_keyword(self, call: PseudoCall, made: List[str]) -> str:
+        """``keyword('term')``: FTS5 hits with their stored highlighted
+        excerpt as ``snippet`` (not a content prefix, so no join)."""
         if len(call.args) != 1 or not isinstance(call.args[0], str):
             raise MaterializeError("keyword expects exactly one string argument")
         term = call.args[0]
         with self.lock:
-            table = self._fresh_table("kw")
-            self.conn.execute(
-                f"CREATE TEMP TABLE {table} "
-                "(id INTEGER PRIMARY KEY, score REAL, snippet TEXT)"
-            )
+            table = self._fresh_table(
+                "kw", "id INTEGER PRIMARY KEY, score REAL, snippet TEXT", made)
             rows = self._fts_query(term)
             if rows:
                 # unified contract: min-max normalized scores, same (id,
@@ -639,6 +665,23 @@ class Materializer:
         scores = M.minmax_normalize(
             np.asarray([r[1] for r in rows], np.float32))
         return ids, scores
+
+
+def _with_snippet(table: str, cols: Sequence[str]) -> str:
+    """The unified result contract ``(id, score, snippet[, cluster,
+    central])`` over a result table of the search's own ``cols``: a
+    subquery that joins ``snippet``, a content prefix, in the statement.
+    Where SQLite flattens the subquery into the statement (it does for
+    ``SELECT ... FROM vec_ops(...) v ...``), it reads a snippet only for
+    the rows the statement reads, and leaves the join out where the
+    statement reads none (the join is on ``_raw_chunks``'s primary key).
+    Rows come in the table's id order.
+    """
+    sel = ["t.id AS id", "t.score AS score",
+           "substr(c.content, 1, 96) AS snippet"]
+    sel += [f"t.{c} AS {c}" for c in cols[2:]]
+    return (f"(SELECT {', '.join(sel)} FROM {table} t "
+            f"LEFT JOIN _raw_chunks c ON c.id = t.id)")
 
 
 def fts_query(

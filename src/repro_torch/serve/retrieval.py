@@ -102,9 +102,11 @@ class RetrievalService:
         self.engine = HopperBackend() if engine is None else get_backend(engine)
         self.query_count = 0
         self.error_count = 0
-        # result tables the materializers made on ``conn``; they stay
-        # there for the connection's life
+        # result tables the materializers made on ``conn``, and of them
+        # those dropped again: each statement drops its own once it has
+        # returned or failed, so the two are equal between statements
         self.sql_temp_tables = 0
+        self.sql_temp_tables_dropped = 0
         self._serving = None  # lazy BatchedRetrievalEngine (see serving())
         self._serving_lock = threading.Lock()
         self._shard_group = None  # lazy ProcessGroup (see shard_group())
@@ -145,6 +147,7 @@ class RetrievalService:
             finally:
                 with self._conn_lock:
                     self.sql_temp_tables += mz.temp_tables
+                    self.sql_temp_tables_dropped += mz.temp_tables_dropped
             return SearchResult(True, cols, rows)
         except (MaterializeError, sqlite3.Error, KeyError) as e:
             # explicit failure -> the agent rewrites and retries (paper §7)
@@ -439,10 +442,12 @@ class RetrievalService:
         ``fused`` (device_mmr / host_pool_transfers / panel_batches)
         tracks how often Phase-2 finished entirely on device and how
         often a host pool round-trip was still needed.
-        ``sql`` (temp_tables) counts the result tables the service's
-        materializers have created on its connection: every retrieval
-        pseudo-call of a statement makes one, and none is dropped, so it
-        grows with the statements served (a leak gauge).
+        ``sql`` (temp_tables / temp_tables_dropped) counts the result
+        tables the service's materializers have created on its connection
+        (every retrieval pseudo-call of a statement makes one) and those
+        dropped again; each statement drops its own once it has returned
+        or failed, so made less dropped is the number still on the
+        connection, 0 between statements.
         """
         out: Dict[str, Any] = {
             "engine": self.engine.name,
@@ -451,7 +456,8 @@ class RetrievalService:
             "store": self.cache.store.stats(),
             "prefilter": self.cache.prefilter.stats(),
             "fused": self.cache.fused.stats(),
-            "sql": {"temp_tables": self.sql_temp_tables},
+            "sql": {"temp_tables": self.sql_temp_tables,
+                    "temp_tables_dropped": self.sql_temp_tables_dropped},
         }
         if self._serving is not None:
             out["serving"] = self._serving.stats()

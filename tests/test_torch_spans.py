@@ -33,8 +33,7 @@ CELL = "corpus_240k.sql_composed"
 # the children of one composed query's root, each under its parent
 PARENT = {"parse": "flex_search", "device_pass": "flex_search",
           "device_wait": "device_pass", "host_tail": "flex_search",
-          "sql.temp_table": "flex_search", "sql.snippet": "flex_search",
-          "sql.statement": "flex_search"}
+          "sql.temp_table": "flex_search", "sql.statement": "flex_search"}
 METRICS = {
     "sql_ms_per_query.direct": ("sql.temp_table", "sql.snippet",
                                 "sql.statement", "sql.prefilter"),
@@ -133,20 +132,25 @@ def test_latency_is_taken_on_the_monotonic_clock(built, recorder):
 
 
 def test_sql_temp_tables_counts_every_result_table(built, recorder):
+    """Every retrieval pseudo-call that gets as far as its result makes
+    one table, and its statement drops it: none is kept."""
     svc = built.system.svc
-    before = svc.stats()["sql"]["temp_tables"]
+    before = svc.stats()["sql"]
     for i in range(3):
         assert svc.flex_search(built.stream.request(i)).ok
     assert not svc.flex_search("SELECT v.id FROM vec_ops('decay:zzz') v").ok
     two = ("SELECT a.id FROM vec_ops('similar:alpha') a "
            "JOIN vec_ops('similar:beta') b ON a.id = b.id")
     assert svc.flex_search(two).ok
-    after = svc.stats()["sql"]["temp_tables"]
+    after = svc.stats()["sql"]
     kept = svc.conn.execute(
         "SELECT count(*) FROM sqlite_temp_master WHERE type = 'table'"
     ).fetchone()[0]
-    assert after - before == 5
-    assert kept >= after
+    assert after["temp_tables"] - before["temp_tables"] == 5
+    assert (after["temp_tables_dropped"] - before["temp_tables_dropped"]
+            == 5)
+    assert after["temp_tables_dropped"] == after["temp_tables"]
+    assert kept == 0
 
 
 def test_a_new_profiler_session_starts_a_fresh_recording(built,
