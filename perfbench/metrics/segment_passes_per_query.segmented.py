@@ -1,0 +1,24 @@
+"""Per-segment device passes a query on the segmented path: the
+``segment_pass`` spans (one segment's K1, mask and K2, and its copy
+back), over the requests the traced window recorded.  Nothing where the
+program records no such span, or where the recording dropped any."""
+
+LAYER = ("segmented device pass: score_select_segments general branch "
+         "(core/backends.py)")
+MOVES = "query_p50_ms"
+SOURCE = "program_span"
+
+SPANS = ("segment_pass",)
+
+
+def read(ctx):
+    try:
+        from repro_torch import spans
+    except ImportError:   # a program without the span recorder
+        return None
+    count = getattr(spans, "count_per_request", None)
+    snap = spans.snapshot()
+    if (count is None or snap.dropped
+            or not any(s.name in SPANS for s in snap.spans)):
+        return None
+    return count(snap, SPANS)

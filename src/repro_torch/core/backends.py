@@ -425,11 +425,11 @@ class _DeviceMMRMixin:
         rel = np.full((len(live), width), _MMR_NEG, np.float32)
         for row, j in enumerate(live):
             rel[row, :sizes[j]] = pools[j][1]
-        sel = self._pool_mmr(
+        (sel,) = _to_host(self._pool_mmr(
             stack.view(len(live), width, dim), _to_device(rel, self.device),
             max(ks[j] for j in live),
             _to_device(np.asarray([lams[j] for j in live], np.float32),
-                       self.device)).cpu().numpy()
+                       self.device)))
         for row, j in enumerate(live):
             out[j] = sel[row, :ks[j]].astype(np.int64)
         return out
@@ -1427,25 +1427,29 @@ def score_select_segments(
     seg_plans = [dataclasses.replace(p, diverse=None)
                  if p.diverse is not None else p for p in plans]
 
+    # the general branch's spans (segment_pass, segment_merge,
+    # segment_mmr) split its host time; the fast path above opens none
     parts: List[List[Candidates]] = []
     for i, seg, m, _ in scored:
-        sel = backend.score_select(
-            seg.matrix, seg.days_ago(now), seg_plans, widths, mask=m,
-            score_bias=None if score_bias is None else score_bias[i],
-            cohort=cohort)
-        parts.append([(idx + offsets[i], vals) for idx, vals in sel])
+        with spans.span("segment_pass"):
+            sel = backend.score_select(
+                seg.matrix, seg.days_ago(now), seg_plans, widths, mask=m,
+                score_bias=None if score_bias is None else score_bias[i],
+                cohort=cohort)
+            parts.append([(idx + offsets[i], vals) for idx, vals in sel])
 
     merged: List[Candidates] = []
-    for j, w in enumerate(widths):
-        if w == 0:
-            merged.append(_empty_candidates())
-            continue
-        cat_i = np.concatenate([p[j][0] for p in parts])
-        cat_v = np.concatenate([p[j][1] for p in parts])
-        live = ~np.isneginf(cat_v)  # mask/padding leakage ends here
-        cat_i, cat_v = cat_i[live], cat_v[live]
-        order = np.argsort(-cat_v, kind="stable")[:w]
-        merged.append((cat_i[order], cat_v[order]))
+    with spans.span("segment_merge"):
+        for j, w in enumerate(widths):
+            if w == 0:
+                merged.append(_empty_candidates())
+                continue
+            cat_i = np.concatenate([p[j][0] for p in parts])
+            cat_v = np.concatenate([p[j][1] for p in parts])
+            live = ~np.isneginf(cat_v)  # mask/padding leakage ends here
+            cat_i, cat_v = cat_i[live], cat_v[live]
+            order = np.argsort(-cat_v, kind="stable")[:w]
+            merged.append((cat_i[order], cat_v[order]))
 
     if use_mmr:
         # merged-pool fused diverse tail: the union-merged pool equals
@@ -1457,13 +1461,14 @@ def score_select_segments(
         div = [j for j, p in enumerate(plans)
                if p.diverse is not None and merged[j][0].size]
         if div:
-            sels = backend.mmr_pool_segments_batch(
-                segments, [merged[j] for j in div],
-                [min(ks_eff[j], int(merged[j][0].size)) for j in div],
-                [plans[j].diverse.lam for j in div])
-            for j, sel in zip(div, sels):
-                gidx, gv = merged[j]
-                merged[j] = (gidx[sel], gv[sel])
+            with spans.span("segment_mmr"):
+                sels = backend.mmr_pool_segments_batch(
+                    segments, [merged[j] for j in div],
+                    [min(ks_eff[j], int(merged[j][0].size)) for j in div],
+                    [plans[j].diverse.lam for j in div])
+                for j, sel in zip(div, sels):
+                    gidx, gv = merged[j]
+                    merged[j] = (gidx[sel], gv[sel])
             if counters is not None:
                 counters.device_mmr += 1
     return merged

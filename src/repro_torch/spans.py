@@ -22,7 +22,8 @@ where one is.  A root that finds the profiler on after a root found it
 off starts a fresh recording; :func:`snapshot` returns the current one.
 A recording keeps at most ``CAP`` spans and counts the rest as
 ``dropped``.  :func:`self_ms_per_request` reduces a snapshot to the
-milliseconds a request spends in named spans, less their children.
+milliseconds a request spends in named spans, less their children, and
+:func:`count_per_request` to how many named spans a request opens.
 """
 
 from __future__ import annotations
@@ -33,7 +34,10 @@ import threading
 import time
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
-CAP = 1 << 18   # spans a recording keeps: ~25,000 composed queries
+# spans a recording keeps: ~50,000 composed queries through flex_search
+# (about 10 spans each), ~22,000 through VectorCache.search on a store of
+# 8 segments (about 23 each: a segment_pass and its device_wait a segment)
+CAP = 1 << 19
 
 
 class Span(NamedTuple):
@@ -190,3 +194,14 @@ def self_ms_per_request(snap: Snapshot,
                 for s in snap.spans
                 if s.name in names and s.request in roots)
     return total / len(roots) * 1e-6
+
+
+def count_per_request(snap: Snapshot, names: Iterable[str]) -> Optional[float]:
+    """How many spans named ``names`` a request opens, over the requests
+    whose root span was recorded; None where none was."""
+    roots = {s.id for s in snap.spans if s.parent < 0}
+    if not roots:
+        return None
+    names = set(names)
+    return sum(1 for s in snap.spans
+               if s.name in names and s.request in roots) / len(roots)

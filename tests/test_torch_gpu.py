@@ -1353,11 +1353,11 @@ def test_hopper_diverse_query_on_a_pool_shorter_than_its_bucket(cuda):
                                for c in zip(*r)))
 
 
-def test_spans_stay_off_the_device_trace(cuda, monkeypatch):
-    """Composed queries through ``flex_search`` under the benchmark's
-    ``Tracer``, with spans recording and again with the recorder's check
-    patched off: the device trace reads a busy time inside its window and
-    the same device ops either way, and no span reaches it."""
+def _spans_under_the_tracer(monkeypatch, config, mix_name, seed):
+    """Eight requests of ``mix_name`` on ``config`` at 20,000 rows under
+    the benchmark's ``Tracer``, with spans recording and again with the
+    recorder's check patched off: the spans recorded and the two traces'
+    summaries, each read against the launch counters' change."""
     import sys
     import time
     import types
@@ -1373,11 +1373,11 @@ def test_spans_stay_off_the_device_trace(cuda, monkeypatch):
     from repro_torch import spans
 
     bench = spec.load(root)
-    built = bench_run.build(root, bench, "corpus_240k", 2**31 + 41, "cuda",
+    built = bench_run.build(root, bench, config, seed, "cuda",
                             {"chunks": 20_000, "sessions": 400})
-    mix = spec.traffic(root, "sql_composed")
+    mix = spec.traffic(root, mix_name)
     call = built.system.entry(mix)
-    stream = traffic.QueryStream(mix, 2**31 + 41)
+    stream = traffic.QueryStream(mix, seed)
     queries = [stream.request(i) for i in range(8)]
     for q in queries[:3]:
         call(q)
@@ -1385,6 +1385,7 @@ def test_spans_stay_off_the_device_trace(cuda, monkeypatch):
 
     def traced():
         tracer, records = Tracer(), []
+        before = built.system.counters()
         with tracer:
             with tracer.window():
                 for q in queries:
@@ -1393,7 +1394,8 @@ def test_spans_stay_off_the_device_trace(cuda, monkeypatch):
                     records.append(types.SimpleNamespace(
                         start=t0, end=time.perf_counter()))
                 torch.cuda.synchronize()
-        return tracer.read(records)
+        after = built.system.counters()
+        return tracer.read(records, {k: after[k] - before[k] for k in after})
 
     try:
         monkeypatch.setattr(spans, "RECORDER", spans.Recorder())
@@ -1411,3 +1413,91 @@ def test_spans_stay_off_the_device_trace(cuda, monkeypatch):
         assert not names & set(summary["seconds"])
         assert not any("annotation" in op for op in summary["seconds"])
     assert set(on["seconds"]) == set(off["seconds"])
+    return recorded
+
+
+def test_spans_stay_off_the_device_trace(cuda, monkeypatch):
+    """Composed queries through ``flex_search`` under the benchmark's
+    ``Tracer``, with spans recording and again with the recorder's check
+    patched off: the device trace reads a busy time inside its window and
+    the same device ops either way, and no span reaches it."""
+    recorded = _spans_under_the_tracer(monkeypatch, "corpus_240k",
+                                       "sql_composed", 2**31 + 41)
+    assert not {"segment_pass", "segment_merge", "segment_mmr"} & {
+        s.name for s in recorded.spans}
+
+
+def test_segment_spans_stay_off_the_device_trace(cuda, monkeypatch):
+    """The same on the live store's segmented pass (``live_240k`` cut to
+    20,000 rows: 8 segments, 1% tombstoned): its segment spans record,
+    8 passes a request, and none reaches the device trace."""
+    from repro_torch import spans
+
+    recorded = _spans_under_the_tracer(monkeypatch, "live_240k",
+                                       "composed_diverse", 2**31 + 43)
+    assert spans.count_per_request(recorded, ["segment_pass"]) == 8
+    assert spans.count_per_request(recorded, ["segment_mmr"]) == 1
+
+
+def test_live_store_matches_the_plain_reference(cuda):
+    """The benchmark's ``live_240k`` at its published size (240,000 x 128
+    f32 in a base and 7 deltas, 1% tombstoned) through ``VectorCache``
+    on the card: the first 64 requests of a seed's ``composed_diverse``
+    stream against ``repro_torch.reference_live`` (float64 over the live
+    rows of the joined segments), ids equal but for adjacent swaps of
+    near MMR ties, relevance within 1e-5; no tombstoned row returned; 8
+    K1, 48 K2 (six a call) and 1 K3 launches a request."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root / "perfbench") not in sys.path:
+        sys.path.insert(0, str(root / "perfbench"))
+    import run as bench_run
+    from harness import corpus as C
+    from harness import spec, traffic
+
+    from repro_torch.core import grammar
+    from repro_torch.core import modulations as M
+    from repro_torch.reference_live import LiveReference
+
+    seed = 2**31 + 34
+    bench = spec.load(root)
+    built = bench_run.build(root, bench, "live_240k", seed, "cuda")
+    config, corpus, live = built.config, built.corpus, built.live
+    assert [s.n_rows for s in built.system.cache.store.segments] == [
+        b - a for a, b in C.segment_bounds(corpus.n, config["segments"])]
+    # each row is tombstoned with probability 0.01: about 2,400 of them
+    assert corpus.n == 240_000 and 2_200 < int((~live).sum()) < 2_600
+    mix = spec.traffic(root, "composed_diverse")
+    call = built.system.entry(mix)
+    embed = built.system.cache.embed_fn
+    stream = traffic.QueryStream(mix, seed)
+    tokens = [stream.request(i) for i in range(64)]
+    call(tokens[0])
+    before = (pem_score.launches, topk.launches, mmr_select.launches)
+    try:
+        got = [call(t) for t in tokens]
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(
+            (pem_score.launches, topk.launches, mmr_select.launches),
+            before))
+    finally:
+        built.system.release()
+    assert launches == (8 * 64, 48 * 64, 64)
+    ref = LiveReference([
+        {"ids": corpus.ids[a:b], "matrix": corpus.matrix[a:b],
+         "timestamps": corpus.timestamps[a:b], "live_mask": live[a:b]}
+        for a, b in C.segment_bounds(corpus.n, config["segments"])],
+        float(config["now"]))
+    k = int(mix["k"])
+    for t, rows in zip(tokens, got):
+        plan = grammar.parse(t, embed)
+        q_pre, q_sup = M.fold_plans([plan])
+        ids, scores = ref.search(
+            q_pre[:, 0], q_sup[:, 0], plan.decay.half_life_days,
+            k=plan.pool, pool=plan.pool, diverse=True, lam=plan.diverse.lam)
+        assert len(rows) == k
+        assert live[np.asarray([i for i, _ in rows])].all()
+        _assert_same_mmr_ranking(
+            rows, list(zip(ids[:k].tolist(), scores[:k].tolist())))

@@ -285,9 +285,12 @@ def test_span_metrics_from_a_hand_built_recording(monkeypatch):
 def test_span_metrics_are_in_the_manifest():
     bench = spec.load(ROOT)
     entries = {m["name"]: m for m in bench["per_layer"]}
+    # the live store's cell reads device_wait too (its segments' copies)
+    cells = {"device_wait_ms_per_query.direct":
+             [CELL, "live_240k.composed_diverse"]}
     for name, names in METRICS.items():
         m = entries[name]
         assert (m["unit"], m["better"], m["source"], m["moves"],
                 m["workloads"]) == ("ms", "lower", "program_span",
-                                    "query_p50_ms", [CELL])
+                                    "query_p50_ms", cells.get(name, [CELL]))
         assert _metric(name).SPANS == names
