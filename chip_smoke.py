@@ -1728,7 +1728,13 @@ def _gated(backend):
 
     class Gated(type(backend)):
         def score_select(self, *args, **kwargs):
-            out = super().score_select(*args, **kwargs)
+            return self._park(super().score_select(*args, **kwargs))
+
+        def score_select_chain(self, *args, **kwargs):
+            # a segmented store's general branch scores here
+            return self._park(super().score_select_chain(*args, **kwargs))
+
+        def _park(self, out):
             self.entered.set()
             if not self.release.wait(timeout=60.0):
                 raise RuntimeError("gated pass never released")

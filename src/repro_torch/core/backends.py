@@ -40,11 +40,13 @@ instances straight through.  No path switches to :class:`TorchBackend`
 on its own: it launches none of the kernels.
 
 Live corpora (`repro_torch.core.segments`) score through
-:func:`score_select_segments`: each segment scores independently (its
-tombstones masked to -inf ON DEVICE via ``score_select``'s ``mask``
-argument, before selection), per-segment top-k candidates merge on the
-host, and the result is bit-identical to a monolithic store.  The
-per-array device matrix cache (:class:`_DeviceMatrixMixin`) holds one
+:func:`score_select_segments`.  On :class:`HopperBackend` every segment
+scores into its own columns of one panel, its tombstones masked to -inf
+ON DEVICE, and one selection over the panel is the union merge
+(:meth:`HopperBackend.score_select_chain`); the other backends score each
+segment independently and merge the per-segment top-k candidates on the
+host.  Either way the result is bit-identical to a monolithic store.
+The per-array device matrix cache (:class:`_DeviceMatrixMixin`) holds one
 entry per warm segment, so appending a segment uploads ONLY the delta.
 """
 
@@ -131,6 +133,87 @@ def _to_host(*tensors) -> List[np.ndarray]:
         return [t.cpu().numpy() for t in tensors]
 
 
+def _to_host_packed(*tensors) -> List[np.ndarray]:
+    """Tensors of 4-byte elements (int32 or float32) copied to the host
+    in ONE blocking copy, the ``device_wait`` span: their bits are laid
+    end to end as int32 on the device, then split again on the host."""
+    import torch
+
+    flat = [t.reshape(-1).view(torch.int32) for t in tensors]
+    packed = flat[0] if len(flat) == 1 else torch.cat(flat)
+    (host,) = _to_host(packed)
+    out, at = [], 0
+    for t in tensors:
+        part = host[at:at + t.numel()].reshape(tuple(t.shape))
+        out.append(part.view(np.float32) if t.is_floating_point() else part)
+        at += t.numel()
+    return out
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): "float32", np.dtype(np.int64): "int64",
+                 np.dtype(np.bool_): "bool"}
+
+
+class _Staging:
+    """One call's host inputs to a device chain, laid out in one byte
+    buffer, every array at a 16-byte-aligned offset (TMA reads
+    ``days_ago``).  The host fills :meth:`host` views; :meth:`send`
+    copies several adjacent arrays whole, and :meth:`send_rows` rows of
+    one array, to the same offsets on the device and returns the device
+    views.  On a card the host side is pinned, so a copy is enqueued and
+    returns at once: nothing on the host waits behind a kernel.  On the
+    CPU both sides are one buffer and nothing is copied."""
+
+    def __init__(self, layout: Dict[str, Tuple[Tuple[int, ...], type]],
+                 device) -> None:
+        import torch
+
+        self._at: Dict[str, Tuple[int, int, Tuple[int, ...], np.dtype]] = {}
+        size = 0
+        for name, (shape, dtype) in layout.items():
+            dtype = np.dtype(dtype)
+            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            self._at[name] = (size, nbytes, tuple(shape), dtype)
+            size += -(-nbytes // 16) * 16
+        on_card = torch.device(device).type == "cuda"
+        self._host = torch.empty(max(size, 16), dtype=torch.uint8,
+                                 pin_memory=on_card)
+        self._dev = (torch.empty_like(self._host, device=device) if on_card
+                     else self._host)
+        self._np = self._host.numpy()
+        self._pairs: Dict[str, tuple] = {}
+
+    def host(self, name: str) -> np.ndarray:
+        off, nbytes, shape, dtype = self._at[name]
+        return self._np[off:off + nbytes].view(dtype).reshape(shape)
+
+    def _typed(self, buf, name: str):
+        import torch
+
+        off, nbytes, shape, dtype = self._at[name]
+        return (buf[off:off + nbytes].view(getattr(torch, _TORCH_DTYPES[dtype]))
+                .view(shape))
+
+    def send(self, *names: str):
+        """Adjacent arrays, whole, in one copy -> their device views."""
+        a = self._at[names[0]][0]
+        b = sum(self._at[names[-1]][:2])
+        if self._dev is not self._host and b > a:
+            self._dev[a:b].copy_(self._host[a:b], non_blocking=True)
+        return [self._typed(self._dev, name) for name in names]
+
+    def send_rows(self, name: str, lo: int, hi: int):
+        """Rows ``lo:hi`` of one array -> their device view."""
+        if name not in self._pairs:
+            self._pairs[name] = (self._typed(self._host, name),
+                                 self._typed(self._dev, name))
+        host, dev = self._pairs[name]
+        rows = dev[lo:hi]
+        if dev is not host:
+            rows.copy_(host[lo:hi], non_blocking=True)
+        return rows
+
+
 def _slice_candidates(idx: np.ndarray, vals: np.ndarray,
                       widths: Sequence[int]) -> List[Candidates]:
     """Host tail of the device ``score_select``: slice each plan's prefix
@@ -168,19 +251,26 @@ class FusedCounters:
     :func:`mmr_host` oracle; a regression back to host MMR shows up here
     before it shows up as latency.  ``panel_batches`` counts batched
     (N, B) mask-panel passes that served a heterogeneous-filter cohort in
-    ONE device scoring pass instead of one per distinct filter.  Benign
-    int bumps, same convention as the store's counters.
+    ONE device scoring pass instead of one per distinct filter.
+    ``segment_chains`` and ``segment_loops`` count the calls to the
+    general branch of :func:`score_select_segments` served as one device
+    chain over a segment-major panel, and those served by one pass a
+    segment.  Benign int bumps, same convention as the store's counters.
     """
 
     device_mmr: int = 0
     host_pool_transfers: int = 0
     panel_batches: int = 0
+    segment_chains: int = 0
+    segment_loops: int = 0
 
     def stats(self) -> Dict[str, int]:
         return {
             "device_mmr": self.device_mmr,
             "host_pool_transfers": self.host_pool_transfers,
             "panel_batches": self.panel_batches,
+            "segment_chains": self.segment_chains,
+            "segment_loops": self.segment_loops,
         }
 
 
@@ -351,7 +441,8 @@ class _DeviceMMRMixin:
     Inside ``score_select`` the chain runs the ``kernels/mmr`` kernel after
     top-k, so diverse plans return only the final k ``(indices, scores)``
     — the oversample pool never crosses the device boundary.  For the
-    merged per-segment pool, :meth:`mmr_pool_segments_batch` gathers the
+    merged per-segment pool of a backend that scores a segment at a time
+    (``segment_chain`` False), :meth:`mmr_pool_segments_batch` gathers the
     pool embeddings ON DEVICE (``index_select``) from the warm resident
     segment matrices and runs one kernel launch for the whole cohort.
     Every path reproduces the :func:`mmr_host` oracle: same greedy argmax,
@@ -586,6 +677,11 @@ class ExecutionBackend:
     #: inside its fused chain — diverse plans then return the FINAL k, not
     #: the oversample pool (see :class:`_DeviceMMRMixin`)
     device_mmr: bool = False
+    #: True when the general branch of :func:`score_select_segments` runs
+    #: as ONE device chain over a segment-major panel
+    #: (:meth:`HopperBackend.score_select_chain`) instead of one
+    #: ``score_select`` a segment and a host merge
+    segment_chain: bool = False
 
     def score(
         self,
@@ -730,6 +826,7 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
     """
 
     name = "hopper"
+    segment_chain = True
 
     def __init__(self, device: str = "cuda") -> None:
         self.device = _kernel_device(device, "HopperBackend")
@@ -846,6 +943,201 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
                       picks[1][row, :kf[j]])
         return out
 
+    def score_select_chain(self, parts, plans, ks, widths, now, use_mmr):
+        """The general branch of :func:`score_select_segments` as ONE
+        device chain, with one blocking copy back.
+
+        ``parts`` lists the scored segments in order as ``(global row
+        offset, segment, eligible mask or None, score bias or None)``;
+        ``ks`` and ``widths`` are each plan's final count and selection
+        width over its eligible rows (so a width never passes the
+        eligible count, and neither -inf nor padding enters a pool).
+
+        Every host input is laid out in one :class:`_Staging` buffer:
+        the folded plans once, each segment's ages, mask and bias in its
+        own rows.  Each segment's K1 writes its own columns of one (B, N)
+        panel, in segment order, which is global row order less the
+        segments that hold no eligible row; the eligible mask drops rows
+        to -inf and ONE K2 selects over the whole panel.  Its ties go to
+        the smallest column, the smallest global row, so the selection is
+        the per-segment top-w followed by the stable union merge, and a
+        monolithic store's.  Diverse plans (``use_mmr``) gather their
+        pools from the segments' resident matrices on the card, by range
+        tests on the column indices, and K3 runs once for all of them.
+        Columns become global rows on the host, over the one copy.
+
+        Returns per-plan ``(global rows, scores)``, or None where the
+        panel's width is past K2's (the caller then runs a pass a
+        segment).
+        """
+        import torch
+
+        from repro_torch.kernels.mmr.ops import mmr_select
+        from repro_torch.kernels.pem_score.ops import pem_score
+        from repro_torch.kernels.topk.ops import MAX_K, topk
+
+        nplans = len(plans)
+        if not any(widths):
+            return [_empty_candidates() for _ in plans]
+        sizes = [seg.n_rows for _, seg, _, _ in parts]
+        starts = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        n = int(starts[-1])
+        w_stat = min(_pow2_bucket(max(widths)), n)
+        if w_stat > MAX_K:
+            return None
+        dim = parts[0][1].matrix.shape[1]
+        decay = [p for p in plans if p.decay is not None]
+        masked = any(m is not None for _, _, m, _ in parts)
+        biased = any(b is not None for _, _, _, b in parts)
+        mask_2d = any(m is not None and m.ndim == 2 for _, _, m, _ in parts)
+        bias_2d = any(b is not None and b.ndim == 2 for _, _, _, b in parts)
+        kf = [min(k, w) for k, w in zip(ks, widths)]
+        div = ([j for j, p in enumerate(plans)
+                if p.diverse is not None and kf[j] > 0] if use_mmr else [])
+        width = max((widths[j] for j in div), default=0)
+        # each segment's ages start 16-byte aligned, as K1's TMA reads them
+        days_at = np.concatenate(
+            [[0], np.cumsum([-(-s // 4) * 4 for s in sizes])]).astype(int)
+
+        layout = {"q_pre": ((dim, nplans), np.float32),
+                  "q_sup": ((dim, nplans), np.float32)}
+        if decay:
+            layout["half_lives"] = ((nplans,), np.float32)
+        if div:
+            layout.update(
+                rows=((len(div),), np.int64),
+                lams=((len(div),), np.float32),
+                live=((len(div), width), np.bool_),
+                starts=((len(parts),), np.int64),
+                segs=((len(parts), 1), np.int64),
+                last=((len(parts), 1), np.int64))
+        header = list(layout)
+        if decay:
+            layout["days"] = ((int(days_at[-1]),), np.float32)
+        if masked:
+            layout["mask"] = ((n, nplans) if mask_2d else (n,), np.bool_)
+        if biased:
+            layout["bias"] = ((n, nplans) if bias_2d else (n,), np.float32)
+        stage = _Staging(layout, self.device)
+        q_pre, q_sup = M.fold_plans(plans)
+        stage.host("q_pre")[...] = q_pre
+        stage.host("q_sup")[...] = q_sup
+        if decay:
+            stage.host("half_lives")[...] = _half_lives(plans)
+        if div:
+            stage.host("rows")[...] = div
+            stage.host("lams")[...] = [plans[j].diverse.lam for j in div]
+            live = stage.host("live")
+            live[...] = False
+            for r, j in enumerate(div):
+                live[r, :widths[j]] = True
+            stage.host("starts")[...] = starts[:-1]
+            stage.host("segs")[:, 0] = np.arange(len(parts))
+            stage.host("last")[:, 0] = np.asarray(sizes) - 1
+        dev = dict(zip(header, stage.send(*header)))
+
+        panel = torch.empty((nplans, n), dtype=torch.float32,
+                            device=self.device)
+        mats = []
+        for s, (_, seg, m, b) in enumerate(parts):
+            with spans.span("segment_pass"):
+                lo, hi = int(starts[s]), int(starts[s + 1])
+                ages = {}
+                if decay:
+                    days = seg.days_ago(now)
+                    _require_days(decay[0], days)
+                    a = int(days_at[s])
+                    stage.host("days")[a:a + hi - lo] = days
+                    ages = dict(days_ago=stage.send_rows("days", a,
+                                                         a + hi - lo),
+                                half_lives=dev["half_lives"])
+                if masked:
+                    stage.host("mask")[lo:hi] = (
+                        True if m is None
+                        else m[:, None] if mask_2d and m.ndim == 1 else m)
+                mat = self._device_matrix(seg.matrix)
+                mats.append(mat)
+                cols = panel[:, lo:hi]
+                pem_score(mat, dev["q_pre"], dev["q_sup"], out=cols.T,
+                          **ages)
+                if b is not None:
+                    # hybrid lexical leg, on this segment's columns only
+                    stage.host("bias")[lo:hi] = (
+                        b[:, None] if bias_2d and b.ndim == 1 else b)
+                    bd = stage.send_rows("bias", lo, hi)
+                    cols += bd.T if bias_2d else bd[None, :]
+
+        delta = np.asarray([off for off, _, _, _ in parts],
+                           np.int64) - starts[:-1]
+
+        def global_rows(cols: np.ndarray) -> np.ndarray:
+            cols = cols.astype(np.int64)
+            if (delta == delta[0]).all():
+                return cols + delta[0]
+            return cols + delta[np.searchsorted(starts[1:-1], cols,
+                                                side="right")]
+
+        plain = [j for j in range(nplans) if j not in div and widths[j]]
+        wp = max((widths[j] for j in plain), default=0)
+        with spans.span("segment_merge"):
+            # the union merge is the selection's: one K2 over every
+            # segment's columns, the ineligible rows at -inf
+            if masked:
+                (md,) = stage.send("mask")
+                panel = torch.where(md.T if mask_2d else md[None, :], panel,
+                                    float("-inf"))
+            v, i = topk(panel, w_stat)
+            if not div:
+                i_h, v_h = _to_host_packed(i[:, :wp], v[:, :wp])
+        if div:
+            with spans.span("segment_mmr"):
+                if div == list(range(nplans)):
+                    pool_i, pool_v = i[:, :width], v[:, :width]
+                else:
+                    pool_i = i.index_select(0, dev["rows"])[:, :width]
+                    pool_v = v.index_select(0, dev["rows"])[:, :width]
+                emb = self._chain_pool_rows(
+                    mats, pool_i.reshape(-1).long(), dev["starts"],
+                    dev["segs"], dev["last"])
+                sel, _ = mmr_select(
+                    emb.float().view(len(div), width, dim),
+                    torch.where(dev["live"], pool_v, _MMR_NEG),
+                    max(kf[j] for j in div), dev["lams"])
+                sel = sel.long()
+                back = _to_host_packed(
+                    torch.gather(pool_i, 1, sel), torch.gather(pool_v, 1, sel),
+                    *((i[:, :wp], v[:, :wp]) if wp else ()))
+            pick_i, pick_v = back[0], back[1]
+            if wp:
+                i_h, v_h = back[2], back[3]
+
+        out = [_empty_candidates() for _ in plans]
+        for r, j in enumerate(div):
+            out[j] = (global_rows(pick_i[r, :kf[j]]), pick_v[r, :kf[j]])
+        for j in plain:
+            out[j] = (global_rows(i_h[j, :widths[j]]), v_h[j, :widths[j]])
+        return out
+
+    @staticmethod
+    def _chain_pool_rows(mats, cols, starts, segs, last):
+        """(P, d) rows of the panel columns ``cols``, each gathered from
+        its segment's resident matrix: every segment gathers every column
+        (clamped to its rows), and a range test on the column keeps the
+        row where the column is the segment's.  On the device: ``starts``
+        (S,) the segments' first columns, ``segs`` (S, 1) their indices
+        and ``last`` (S, 1) their last rows."""
+        import torch
+
+        if len(mats) == 1:
+            return mats[0].index_select(0, cols)
+        seg_of = torch.bucketize(cols, starts[1:], right=True)
+        local = (cols - starts[seg_of]).unsqueeze(0).minimum(last)
+        mine = (seg_of.unsqueeze(0) == segs).unsqueeze(2)
+        out = mats[0].index_select(0, local[0])
+        for s in range(1, len(mats)):
+            out = torch.where(mine[s], mats[s].index_select(0, local[s]), out)
+        return out
+
 
 class ShardedBackend(HopperBackend):
     """Row-sharded scoring over a list of devices: the port of the
@@ -872,6 +1164,9 @@ class ShardedBackend(HopperBackend):
     """
 
     name = "sharded"
+    # score_select splits a segment's rows across the devices, so the
+    # general branch keeps one pass a segment
+    segment_chain = False
 
     def __init__(self, devices: Optional[Sequence[str]] = None) -> None:
         import torch
@@ -1303,8 +1598,14 @@ def score_select_segments(
     *i+1* (the async engine in :mod:`repro_torch.serve.engine` does exactly
     that).
 
-    Each segment scores independently through ``backend.score_select``
-    (its tombstones masked to -inf on device before selection), then the
+    On a backend with ``segment_chain`` (:class:`HopperBackend`) the
+    general branch is ONE device chain
+    (:meth:`HopperBackend.score_select_chain`): every segment scores into
+    its own columns of one segment-major panel, and one selection over
+    the panel is the union merge below, done by the card, with one copy
+    back.  Elsewhere each segment scores independently through
+    ``backend.score_select`` (its tombstones masked to -inf on device
+    before selection), then the
     per-segment top-k candidates merge on the host — the same two-stage
     union-merge shape ``dist/pem_sharded.union_merge_topk`` applies across
     device shards, applied across segments: every segment's local top-w
@@ -1325,8 +1626,9 @@ def score_select_segments(
     exactly like the monolithic ``score_select`` — UNLESS the backend
     fuses MMR on device (``backend.device_mmr`` and ``device_mmr`` is not
     forced False), in which case EVERY diverse plan is device-finalized:
-    the fast path fuses MMR into the scoring chain, and the per-segment
-    path runs :meth:`_DeviceMMRMixin.mmr_pool_segments_batch` over the merged
+    the fast path fuses MMR into the scoring chain, the segment chain runs
+    K3 over the pools it selected, and the per-segment path runs
+    :meth:`_DeviceMMRMixin.mmr_pool_segments_batch` over the merged
     pool (gathered from the warm resident segment matrices, never the
     host).  Callers can then finish with ``mmr_done=backend.device_mmr``.
 
@@ -1429,6 +1731,21 @@ def score_select_segments(
 
     # the general branch's spans (segment_pass, segment_merge,
     # segment_mmr) split its host time; the fast path above opens none
+    if backend.segment_chain:
+        out = backend.score_select_chain(
+            [(int(offsets[i]), seg, m,
+              None if score_bias is None else score_bias[i])
+             for i, seg, m, _ in scored],
+            plans, ks_eff, widths, now, use_mmr)
+        if out is not None:
+            if counters is not None:
+                counters.segment_chains += 1
+                if use_mmr and any(p.diverse is not None and w
+                                   for p, w in zip(plans, widths)):
+                    counters.device_mmr += 1
+            return out
+    if counters is not None:
+        counters.segment_loops += 1
     parts: List[List[Candidates]] = []
     for i, seg, m, _ in scored:
         with spans.span("segment_pass"):

@@ -35,8 +35,8 @@ import time
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 # spans a recording keeps: ~50,000 composed queries through flex_search
-# (about 10 spans each), ~22,000 through VectorCache.search on a store of
-# 8 segments (about 23 each: a segment_pass and its device_wait a segment)
+# (about 10 spans each), ~34,000 through VectorCache.search on a store of
+# 8 segments (about 15 each: a segment_pass a segment, one device_wait)
 CAP = 1 << 19
 
 

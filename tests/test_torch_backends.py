@@ -204,9 +204,14 @@ def test_segments_match_reference(device_mmr, port):
 
 
 @pytest.mark.parametrize("port", sorted(PORTS))
-def test_merged_pool_mmr_is_one_launch_for_the_cohort(port):
+def test_merged_pool_mmr_is_one_launch_for_the_cohort(port, monkeypatch):
     """Diverse plans with different lambdas over a multi-segment store
-    finish in ONE merged-pool call, equal to the host oracle."""
+    finish in ONE MMR call for the cohort, equal to the host oracle:
+    ``HopperBackend`` calls K3 once inside its segment chain (no merged
+    pool crosses to the host), ``TorchBackend`` makes one merged-pool
+    call."""
+    from repro_torch.kernels.mmr import ops as mmr_ops
+
     mat, days, rng = _corpus(n=300, seed=13)
     ref = _reference_store(mat, days, [150, 150],
                            rng.choice(300, 20, replace=False))
@@ -217,14 +222,22 @@ def test_merged_pool_mmr_is_one_launch_for_the_cohort(port):
     t_div = [t_plans[j] for j in div]
     ks = [KS[j] for j in div]
     backend = PORTS[port][0]("cpu")
-    calls, mmr_calls = [], []
+    calls, mmr_calls, k3_calls = [], [], []
     batch = backend.mmr_pool_segments_batch
     backend.mmr_pool_segments_batch = lambda *a: calls.append(1) or batch(*a)
     pool_mmr = backend._pool_mmr
     backend._pool_mmr = lambda *a: mmr_calls.append(1) or pool_mmr(*a)
+    k3 = mmr_ops.mmr_select
+    monkeypatch.setattr(mmr_ops, "mmr_select",
+                        lambda *a: k3_calls.append(a[0].shape[0]) or k3(*a))
     got = TB.score_select_segments(backend, store.segments, t_div, ks,
                                    now=NOW)
-    assert len(calls) == 1 and len(mmr_calls) == 1
+    if port == "hopper":
+        assert backend.segment_chain
+        assert not calls and not mmr_calls
+        assert k3_calls == [len(div)]   # one K3 call, both plans' pools
+    else:
+        assert len(calls) == 1 and len(mmr_calls) == 1
     want = RB.score_select_segments("jit-jax", ref.segments, r_div, ks,
                                     now=NOW)
     _assert_same(got, want)

@@ -1446,7 +1446,8 @@ def test_live_store_matches_the_plain_reference(cuda):
     stream against ``repro_torch.reference_live`` (float64 over the live
     rows of the joined segments), ids equal but for adjacent swaps of
     near MMR ties, relevance within 1e-5; no tombstoned row returned; 8
-    K1, 48 K2 (six a call) and 1 K3 launches a request."""
+    K1, 6 K2 (one call over the segment-major panel) and 1 K3 launches a
+    request."""
     import sys
     from pathlib import Path
 
@@ -1484,7 +1485,7 @@ def test_live_store_matches_the_plain_reference(cuda):
             before))
     finally:
         built.system.release()
-    assert launches == (8 * 64, 48 * 64, 64)
+    assert launches == (8 * 64, 6 * 64, 64)
     ref = LiveReference([
         {"ids": corpus.ids[a:b], "matrix": corpus.matrix[a:b],
          "timestamps": corpus.timestamps[a:b], "live_mask": live[a:b]}
@@ -1501,3 +1502,136 @@ def test_live_store_matches_the_plain_reference(cuda):
         assert live[np.asarray([i for i, _ in rows])].all()
         _assert_same_mmr_ranking(
             rows, list(zip(ids[:k].tolist(), scores[:k].tolist())))
+
+
+def test_live_store_chain_equals_the_loop_on_the_card(cuda):
+    """``live_240k`` at its published size, 64 requests of a seed's
+    ``composed_diverse`` stream: the general branch as one chain over the
+    segment-major panel gives the pass a segment's answers bit for bit
+    (ids and score bits), and one request costs 8 K1, 6 K2 and 1 K3
+    launches (the loop's: 8, 48, 1)."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root / "perfbench") not in sys.path:
+        sys.path.insert(0, str(root / "perfbench"))
+    import run as bench_run
+    from harness import spec, traffic
+
+    from repro_torch.core.backends import HopperBackend
+
+    class LoopHopper(HopperBackend):
+        segment_chain = False
+
+    seed = 2**31 + 35
+    bench = spec.load(root)
+    built = bench_run.build(root, bench, "live_240k", seed, "cuda")
+    mix = spec.traffic(root, "composed_diverse")
+    stream = traffic.QueryStream(mix, seed)
+    tokens = [stream.request(i) for i in range(64)]
+    cache, now = built.system.cache, built.system.now
+    chain, loop = HopperBackend("cuda"), LoopHopper("cuda")
+
+    def launches():
+        return (pem_score.launches, topk.launches, mmr_select.launches)
+
+    try:
+        for backend in (chain, loop):   # warm each backend's resident cache
+            cache.search(tokens[0], now=now, engine=backend)
+        counts = {}
+        for name, backend in (("chain", chain), ("loop", loop)):
+            torch.cuda.synchronize()
+            before = launches()
+            cache.search(tokens[1], now=now, engine=backend)
+            torch.cuda.synchronize()
+            counts[name] = tuple(a - b for a, b in zip(launches(), before))
+        got = [cache.search(t, now=now, engine=chain) for t in tokens]
+        want = [cache.search(t, now=now, engine=loop) for t in tokens]
+        assert cache.fused.segment_chains >= 65
+        assert cache.fused.segment_loops >= 65
+    finally:
+        built.system.release()
+    assert counts == {"chain": (8, 6, 1), "loop": (8, 48, 1)}
+    for g, w in zip(got, want):
+        assert [i for i, _ in g] == [i for i, _ in w]
+        assert (np.asarray([v for _, v in g], np.float32).view(np.uint32)
+                == np.asarray([v for _, v in w], np.float32)
+                .view(np.uint32)).all()
+
+
+@pytest.mark.parametrize("kind", ["cohort", "panel_masks", "masks_and_bias"])
+def test_segment_chain_cohorts_equal_the_loop_on_the_card(cuda, kind):
+    """A 40,000-row store in ``live_240k``'s proportions (8 segments, 1%
+    tombstoned), a cohort of 16 plans mixing half-lives and lambdas, half
+    diverse: unmasked (the engine's cohort), under (n, B) candidate
+    panels with one segment skipped (the filter batch), and under 1-D
+    masks with an (n, B) bias (hybrid).  The chain's answers equal the
+    pass a segment's bit for bit."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root / "perfbench") not in sys.path:
+        sys.path.insert(0, str(root / "perfbench"))
+    from harness import corpus as C
+    from harness import spec
+
+    from repro_torch.core import backends as B
+    from repro_torch.core import grammar
+    from repro_torch.core import modulations as M
+    from repro_torch.core.segments import store_from_arrays
+    from repro_torch.embed import HashEmbedder
+
+    class LoopHopper(B.HopperBackend):
+        segment_chain = False
+
+    n, d, now, batch = 40_000, 128, 1_770_000_000.0, 16
+    config = spec.config(root, spec.load(root), "live_240k")
+    rng = np.random.default_rng(35)
+    m = rng.standard_normal((n, d)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    ts = now - rng.uniform(0.0, 180 * 86400.0, n)
+    live = rng.random(n) >= 0.01
+    store = store_from_arrays([
+        {"ids": np.arange(a, b), "matrix": m[a:b], "timestamps": ts[a:b],
+         "live_mask": live[a:b]}
+        for a, b in C.segment_bounds(n, config["segments"])])
+    embed = HashEmbedder(d)
+    topics = ["segment merge", "flash attention", "sql endpoint",
+              "device cache"]
+    plans = []
+    for j in range(batch):
+        mods = [f"decay:{(7, 14, 30, 90)[j % 4]}" if j % 5 else "",
+                "diverse" if j % 2 else ""]
+        plan = grammar.parse(" ".join([f"similar:{topics[j % 4]}"] + mods),
+                             embed)
+        if plan.diverse is not None:
+            plan = dataclasses.replace(plan, diverse=M.DiverseSpec(
+                lam=(0.7, 0.3, 0.0, 0.9)[j % 4]))
+        plans.append(plan)
+    ks = [10 + 7 * j for j in range(batch)]
+    kw = {}
+    segs = store.segments
+    if kind == "panel_masks":
+        kw["candidate_masks"] = [
+            None if s == 2 else rng.random((seg.n_rows, batch)) < 0.3
+            for s, seg in enumerate(segs)]
+    elif kind == "masks_and_bias":
+        kw["candidate_masks"] = [rng.random(seg.n_rows) < 0.5 for seg in segs]
+        bias = []
+        for seg in segs:
+            b = np.zeros((seg.n_rows, batch), np.float32)
+            hit = rng.random(b.shape) < 0.1
+            b[hit] = rng.uniform(0.0, 0.5, int(hit.sum()))
+            bias.append(b)
+        kw["score_bias"] = bias
+    got = B.score_select_segments(B.HopperBackend("cuda"), segs, plans, ks,
+                                  now=now, cohort=True, **kw)
+    want = B.score_select_segments(LoopHopper("cuda"), segs, plans, ks,
+                                   now=now, cohort=True, **kw)
+    for (gi, gv), (wi, wv) in zip(got, want):
+        assert gi.size
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(np.asarray(gv, np.float32).view(
+            np.uint32), np.asarray(wv, np.float32).view(np.uint32))

@@ -197,9 +197,10 @@ def recorder(monkeypatch):
     ("live_240k", 8), ("1_segment_tombstoned", 1), ("whole", 0)])
 def test_the_general_branch_opens_its_spans(recorder, layout, passes):
     """A request on the general branch opens one ``segment_pass`` a
-    segment, each around its copy back, one ``segment_merge`` and one
-    ``segment_mmr`` around K3's copy back; one live segment takes the fast
-    path and opens none of them."""
+    segment (its ages, mask rows and K1 enqueue, no copy back), one
+    ``segment_merge`` (the mask and the one K2) and one ``segment_mmr``
+    around the pool's gather, K3 and the request's one copy back; one
+    live segment takes the fast path and opens none of them."""
     cut = ([1.0], 0.0) if layout == "whole" else LAYOUTS[layout]()
     cache = VectorCache(embed_fn=HashEmbedder(DIM),
                         store=store_from_arrays(_arrays(cut)))
@@ -217,7 +218,7 @@ def test_the_general_branch_opens_its_spans(recorder, layout, passes):
     waits = Counter(by_id[s.parent].name for s in snap.spans
                     if s.name == "device_wait")
     if passes:
-        assert waits == {"segment_pass": 2 * passes, "segment_mmr": 2}
+        assert waits == {"segment_mmr": 2}   # one copy back a request
     else:
         assert waits == {"device_pass": 2 * 2}   # K2's and K3's copies
     for s in snap.spans:

@@ -157,6 +157,16 @@ def gate_backend(P, key="fused", *, released=False, delay_s=0.0,
         name = "gate"
 
         def score_select(self, *args, **kwargs):
+            self._wait()
+            return super().score_select(*args, **kwargs)
+
+        def score_select_chain(self, *args, **kwargs):
+            # a segmented store's general branch scores here, not through
+            # score_select, on a backend that runs it as one chain
+            self._wait()
+            return super().score_select_chain(*args, **kwargs)
+
+        def _wait(self):
             self.calls += 1
             self.entered.set()
             if delay_s:
@@ -167,7 +177,6 @@ def gate_backend(P, key="fused", *, released=False, delay_s=0.0,
                 ok = self.release.wait(timeout=15.0)
             if not ok:
                 raise RuntimeError("gate never released (test bug)")
-            return super().score_select(*args, **kwargs)
 
     gate = Gate.__new__(Gate)
     gate.__dict__.update(base.__dict__)
