@@ -1944,7 +1944,7 @@ def _filter_panel_kernels(torch, svc, backend, reqs, cands) -> dict:
     decay epilogue; ``torch.topk``) and its bound from the shared count."""
     from repro_torch.configs.flexvec import pem_score_work, topk_work
     from repro_torch.core import modulations as M
-    from repro_torch.core.backends import (PlanStructure, _half_lives,
+    from repro_torch.core.backends import (_half_lives, _select_width,
                                            selection_width)
     from repro_torch.core.grammar import parse
     from repro_torch.kernels.pem_score.ops import pem_score
@@ -1965,8 +1965,7 @@ def _filter_panel_kernels(torch, svc, backend, reqs, cands) -> dict:
               for a in M.fold_plans(plans))
     days = torch.as_tensor(seg.days_ago(NOW), device=dev)
     hl = torch.as_tensor(_half_lives(plans), dtype=torch.float32, device=dev)
-    width = min(PlanStructure.of(plans, [selection_width(p, 10, n)
-                                         for p in plans], n).width, n)
+    width = _select_width([selection_width(p, 10, n) for p in plans], n)
     panel = torch.empty((b, n), device=dev)
 
     def k1():

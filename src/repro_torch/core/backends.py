@@ -14,13 +14,14 @@ calls the same primitives:
 
 ``score_select`` is the fused score->select stage: it returns ONLY the
 top-:func:`selection_width` candidate ``(indices, scores)`` per plan.  On
-:class:`HopperBackend` the whole chain runs on the card with no host hop:
-the ``pem_score`` kernel writes the (B, N) score panel, the ``topk`` kernel
-selects each plan's pool from it, and for diverse plans the ``mmr`` kernel
-selects the final k over that pool, so only final candidates come back.
-The host finishing stage (:func:`finalize_candidates`: truncate, or the
-:func:`mmr_host` oracle over the oversampled pool) is shared by every
-host-path consumer, so batched and direct paths rank identically.
+:class:`HopperBackend` it is ONE device chain, for a monolithic matrix as
+for a live corpus's segments: one pinned staging buffer in, the
+``pem_score`` kernel's (B, N) score panel, the ``topk`` kernel's pools,
+the ``mmr`` kernel's final k over pools gathered on the card, and one
+packed copy of the final candidates out.  The host finishing stage
+(:func:`finalize_candidates`: truncate, or the :func:`mmr_host` oracle
+over the oversampled pool) is shared by every host-path consumer, so
+batched and direct paths rank identically.
 
 Backends:
 
@@ -41,17 +42,18 @@ on its own: it launches none of the kernels.
 
 Live corpora (`repro_torch.core.segments`) score through
 :func:`score_select_segments`.  On :class:`HopperBackend` every segment
-scores into its own columns of one panel, its tombstones masked to -inf
-ON DEVICE, and one selection over the panel is the union merge
-(:meth:`HopperBackend.score_select_chain`); the other backends score each
-segment independently and merge the per-segment top-k candidates on the
-host.  Either way the result is bit-identical to a monolithic store.
+scores into its own columns of the chain's panel, its tombstones masked
+to -inf ON DEVICE, and the one selection is the union merge; the other
+backends score each segment independently and merge the per-segment
+top-k candidates on the host.  Either way the result is bit-identical to
+a monolithic store.
 The per-array device matrix cache (:class:`_DeviceMatrixMixin`) holds one
 entry per warm segment, so appending a segment uploads ONLY the delta.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -160,17 +162,21 @@ class _Staging:
     ``days_ago``).  The host fills :meth:`host` views; :meth:`send`
     copies several adjacent arrays whole, and :meth:`send_rows` rows of
     one array, to the same offsets on the device and returns the device
-    views.  On a card the host side is pinned, so a copy is enqueued and
-    returns at once: nothing on the host waits behind a kernel.  On the
-    CPU both sides are one buffer and nothing is copied."""
+    views.  A layout entry is ``(shape, dtype)``, or an array, which is
+    laid out and written at once.  On a card the host side is pinned, so
+    a copy is enqueued and returns at once: nothing on the host waits
+    behind a kernel.  On the CPU both sides are one buffer and nothing is
+    copied."""
 
-    def __init__(self, layout: Dict[str, Tuple[Tuple[int, ...], type]],
+    def __init__(self, layout: Dict[str, Union[np.ndarray, tuple]],
                  device) -> None:
         import torch
 
         self._at: Dict[str, Tuple[int, int, Tuple[int, ...], np.dtype]] = {}
         size = 0
-        for name, (shape, dtype) in layout.items():
+        for name, spec in layout.items():
+            shape, dtype = (spec.shape, spec.dtype) if isinstance(
+                spec, np.ndarray) else spec
             dtype = np.dtype(dtype)
             nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
             self._at[name] = (size, nbytes, tuple(shape), dtype)
@@ -182,6 +188,9 @@ class _Staging:
                      else self._host)
         self._np = self._host.numpy()
         self._pairs: Dict[str, tuple] = {}
+        for name, spec in layout.items():
+            if isinstance(spec, np.ndarray):
+                self.host(name)[...] = spec
 
     def host(self, name: str) -> np.ndarray:
         off, nbytes, shape, dtype = self._at[name]
@@ -294,6 +303,27 @@ def _pool_widths(widths, mask, n: int, batch: int) -> np.ndarray:
     if batch > len(widths):
         pw = np.pad(pw, (0, batch - len(widths)))
     return pw.astype(np.int32)
+
+
+def _select_width(widths: Sequence[int], n: int) -> int:
+    """K2's width: the pow2 bucket of the widest selection, at most n."""
+    return min(_pow2_bucket(max(widths, default=0)), n)
+
+
+def _tail_plan(plans, ks, widths, pool_w, use_mmr: bool):
+    """The chain's tail: each plan's final count, the plans K3 finishes,
+    the plans returned as selected, and K3's host inputs (its plans'
+    panel rows, their lambdas and each pool's live slots)."""
+    kf = [min(max(k, 0), int(w)) for k, w in zip(ks, pool_w)]
+    fused = [use_mmr and p.diverse is not None for p in plans]
+    div = [j for j, f in enumerate(fused) if f and kf[j]]
+    plain = [j for j, (f, w) in enumerate(zip(fused, widths)) if w and not f]
+    pw = np.asarray(pool_w, np.int64)[div]
+    k3 = {} if not div else {
+        "rows": np.asarray(div, np.int64),
+        "lams": np.asarray([plans[j].diverse.lam for j in div], np.float32),
+        "live": np.arange(pw.max())[None, :] < pw[:, None]}
+    return kf, div, plain, k3
 
 
 def _panel_inputs(plans, structure: "PlanStructure", use_mmr: bool):
@@ -438,7 +468,7 @@ class _DeviceMatrixMixin:
 class _DeviceMMRMixin:
     """Fused on-device MMR for diverse plans.
 
-    Inside ``score_select`` the chain runs the ``kernels/mmr`` kernel after
+    :class:`HopperBackend`'s chain runs the ``kernels/mmr`` kernel after
     top-k, so diverse plans return only the final k ``(indices, scores)``
     — the oversample pool never crosses the device boundary.  For the
     merged per-segment pool of a backend that scores a segment at a time
@@ -536,13 +566,11 @@ class PlanStructure:
     """The *shape* of a scoring micro-batch, as the reference package
     keys its compiled graphs on it.
 
-    The Hopper kernels take exact shapes and compile nothing per call, so
-    :class:`HopperBackend` reads one field: ``width``, the pow2-bucketed
-    top-k width, which makes it select exactly as wide a pool as the
-    reference's device backends do.  :class:`TorchBackend` keys its
-    :class:`PlanCache` on the whole structure, as the reference's jit-jax
-    does.  Suppress count, top-k width and the corpus row count are
-    bucketed (padded up to powers of two).
+    :class:`TorchBackend` keys its :class:`PlanCache` on it, as the
+    reference's jit-jax does.  Suppress count, top-k width and the corpus
+    row count are bucketed (padded up to powers of two).  The Hopper
+    kernels take exact shapes and compile nothing per call: those
+    backends bucket only the top-k width (:func:`_select_width`).
     """
 
     batch: int            # B — number of plans folded into the panel
@@ -816,13 +844,14 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
 
     ``device="cuda"`` (the default) launches the CUDA kernels and raises on
     a machine without a card; ``device="cpu"`` runs the same chain through
-    the kernels' plain versions.  The scoring kernel computes each plan's
-    decay factor from the rows' ages and the plan's half-life, so the
-    whole batch scores in one launch, whatever its mix of half-lives,
-    into a (B, N) panel in plan order that the top-k kernel reads in
-    place; the ``mmr`` kernel then selects over every diverse plan's
-    device-resident pool in one launch.  No host hop
-    anywhere in the chain: only final candidates come back.
+    the kernels' plain versions.  One chain (:meth:`_chain`) serves
+    :meth:`score_select`, :meth:`score_panel` (its K1 step) and the
+    general branch of :func:`score_select_segments`.  K1 computes each
+    plan's decay factor from the rows' ages and its half-life, so a batch
+    of any mix of half-lives scores in one launch a row block into a
+    (B, N) panel that K2 reads in place; K3 then selects over every
+    diverse plan's device-resident pool in one launch.  Only final
+    candidates come back.
     """
 
     name = "hopper"
@@ -831,308 +860,213 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
     def __init__(self, device: str = "cuda") -> None:
         self.device = _kernel_device(device, "HopperBackend")
 
-    def _panel(self, matrix, days_ago, plans):
-        """Device-resident (B, N) score panel, rows in plan order, from
-        one scoring launch whatever the plans' half-lives."""
-        import torch
-
-        from repro_torch.kernels.pem_score.ops import pem_score
-
-        q_pre, q_sup = M.fold_plans(plans)
-        panel = torch.empty((len(plans), matrix.shape[0]),
-                            dtype=torch.float32, device=self.device)
-        ages = {}
-        if any(p.decay is not None for p in plans):
-            # each plan's factor is computed in the kernel's epilogue from
-            # the rows' ages and its half-life (+inf: exactly 1)
-            ages = dict(
-                days_ago=_to_device(np.asarray(days_ago, np.float32),
-                                    self.device),
-                half_lives=_to_device(_half_lives(plans), self.device))
-        # the transposed view takes the (N, B) scores the kernel computes
-        # straight into the (B, N) rows top-k reads
-        pem_score(self._device_matrix(matrix),
-                  _to_device(np.asarray(q_pre, np.float32), self.device),
-                  _to_device(np.asarray(q_sup, np.float32), self.device),
-                  out=panel.T, **ages)
-        return panel
-
     def score_panel(self, matrix, days_ago, plans):
-        for p in plans:
-            _require_days(p, days_ago)
-        panel = self._panel(matrix, days_ago, plans)
+        panel, _, _, _ = self._chain_head([(0, matrix, days_ago, None, None)],
+                                          plans)
         return np.ascontiguousarray(panel.T.cpu().numpy())
 
     def score_select(self, matrix, days_ago, plans, ks, *, mask=None,
                      fused_mmr=None, score_bias=None, cohort=False):
         # the kernels take exact shapes (nothing compiled per batch size),
         # so the cohort flag has nothing to bucket here
+        for p in plans:
+            _require_days(p, days_ago)
+        n = matrix.shape[0]
+        widths = [selection_width(p, k, n) for p, k in zip(plans, ks)]
+        return self._chain(
+            [(0, matrix, days_ago, mask, score_bias)], plans, ks, widths,
+            _pool_widths(widths, mask, n, len(plans)),
+            self._use_mmr(plans, fused_mmr))
+
+    def score_select_chain(self, parts, plans, ks, widths, use_mmr):
+        """The general branch of :func:`score_select_segments` under its
+        spans (``widths`` are over eligible rows: the pool widths too);
+        None past K2's ``MAX_K``, where the caller runs the loop."""
+        from repro_torch.kernels.topk.ops import MAX_K
+
+        n = sum(mat.shape[0] for _, mat, _, _, _ in parts)
+        if _select_width(widths, n) > MAX_K:
+            return None
+        return self._chain(parts, plans, ks, widths, widths, use_mmr,
+                           span=spans.span)
+
+    def _chain(self, parts, plans, ks, widths, pool_w, use_mmr,
+               span=contextlib.nullcontext):
+        """ONE device chain over ``parts``, row blocks in order as
+        ``(global row offset, matrix, days_ago, eligible mask, score
+        bias)`` (None for none): :meth:`_chain_head` scores them into one
+        (B, N) panel, the mask drops rows to -inf, ONE K2 selects over the
+        panel (ties to the smallest column, the smallest global row: the
+        stable union merge of the blocks' top-w) and :meth:`_chain_tail`
+        finishes.  ``pool_w`` are the pools' widths, clamped to each
+        plan's eligible rows.  ``span`` opens the general branch's spans;
+        a ``score_select`` opens none (a null context a site)."""
         import torch
 
         from repro_torch.kernels.topk.ops import topk
 
-        for p in plans:
-            _require_days(p, days_ago)
-        n = matrix.shape[0]
-        if n == 0:
-            return [_empty_candidates() for _ in plans]
-        widths = [selection_width(p, k, n) for p, k in zip(plans, ks)]
-        # the reference's pow2 width bucket, clamped to the real row count
-        w_stat = min(PlanStructure.of(plans, widths, n).width, n)
-        panel = self._panel(matrix, days_ago, plans)
-        if score_bias is not None:
-            # hybrid lexical leg: additive fusion on the device-resident
-            # panel, before mask/top-k
-            b = _to_device(np.asarray(score_bias, np.float32), self.device)
-            panel = panel + (b.T if b.ndim == 2 else b[None, :])
-        if mask is not None:
-            # tombstones (or each plan's candidate-panel column) drop out
-            # on device, before the top-k kernel
-            m = _to_device(np.asarray(mask, bool), self.device)
-            panel = torch.where(m.T if m.ndim == 2 else m[None, :], panel,
-                                float("-inf"))
-        v, i = topk(panel, w_stat)
-        mat = self._device_matrix(matrix)
-        return self._finish_select(
-            plans, ks, widths, mask, n, i, v, fused_mmr,
-            lambda pool_i, rows: mat.index_select(0, pool_i.reshape(-1)))
-
-    def _finish_select(self, plans, ks, widths, mask, n, i, v, fused_mmr,
-                       pool_rows):
-        """The chain's tail over the selected (B, w) candidates ``i``,
-        ``v`` on the device: slice each plan's top-``widths[j]``, or run
-        the fused diverse tail.  ``pool_rows(pool_i, rows)`` returns the
-        embeddings of the (D, width) pool rows ``pool_i`` of the panel
-        rows ``rows``, flattened to (D * width, d)."""
-        import torch
-
-        if not self._use_mmr(plans, fused_mmr):
-            return _slice_candidates(*_to_host(i, v), widths)
-        # fused diverse tail: ONE mmr launch over every diverse plan's
-        # device-resident pool (per-plan lambdas; a plan's slots past its
-        # true pool width carry NEG) — only the final k come back
-        from repro_torch.kernels.mmr.ops import mmr_select
-
-        pool_w = _pool_widths(widths, mask, n, len(plans))
-        kf = [min(max(k, 0), int(pw)) for k, pw in zip(ks, pool_w)]
-        div = [j for j, p in enumerate(plans)
-               if p.diverse is not None and kf[j] > 0]
-        picks = None
-        if div:
-            rows = _to_device(np.asarray(div, np.int64), self.device)
-            width = int(pool_w[div].max())
-            pool_i = i.index_select(0, rows)[:, :width].long()
-            pool_v = v.index_select(0, rows)[:, :width]
-            live = (torch.arange(width, device=self.device)[None, :]
-                    < _to_device(pool_w[div].astype(np.int64),
-                                 self.device)[:, None])
-            emb = pool_rows(pool_i, rows).float().view(len(div), width, -1)
-            lams = _to_device(np.asarray(
-                [plans[j].diverse.lam for j in div], np.float32), self.device)
-            sel, _ = mmr_select(emb, torch.where(live, pool_v, _MMR_NEG),
-                                max(kf[j] for j in div), lams)
-            sel = sel.long()
-            picks = _to_host(torch.gather(pool_i, 1, sel),
-                             torch.gather(pool_v, 1, sel))
-        out = _slice_candidates(*_to_host(i, v), widths)
-        for j, p in enumerate(plans):
-            if p.diverse is not None and kf[j] == 0:
-                out[j] = _empty_candidates()
-        for row, j in enumerate(div):
-            out[j] = (picks[0][row, :kf[j]].astype(np.int64),
-                      picks[1][row, :kf[j]])
-        return out
-
-    def score_select_chain(self, parts, plans, ks, widths, now, use_mmr):
-        """The general branch of :func:`score_select_segments` as ONE
-        device chain, with one blocking copy back.
-
-        ``parts`` lists the scored segments in order as ``(global row
-        offset, segment, eligible mask or None, score bias or None)``;
-        ``ks`` and ``widths`` are each plan's final count and selection
-        width over its eligible rows (so a width never passes the
-        eligible count, and neither -inf nor padding enters a pool).
-
-        Every host input is laid out in one :class:`_Staging` buffer:
-        the folded plans once, each segment's ages, mask and bias in its
-        own rows.  Each segment's K1 writes its own columns of one (B, N)
-        panel, in segment order, which is global row order less the
-        segments that hold no eligible row; the eligible mask drops rows
-        to -inf and ONE K2 selects over the whole panel.  Its ties go to
-        the smallest column, the smallest global row, so the selection is
-        the per-segment top-w followed by the stable union merge, and a
-        monolithic store's.  Diverse plans (``use_mmr``) gather their
-        pools from the segments' resident matrices on the card, by range
-        tests on the column indices, and K3 runs once for all of them.
-        Columns become global rows on the host, over the one copy.
-
-        Returns per-plan ``(global rows, scores)``, or None where the
-        panel's width is past K2's (the caller then runs a pass a
-        segment).
-        """
-        import torch
-
-        from repro_torch.kernels.mmr.ops import mmr_select
-        from repro_torch.kernels.pem_score.ops import pem_score
-        from repro_torch.kernels.topk.ops import MAX_K, topk
-
-        nplans = len(plans)
         if not any(widths):
             return [_empty_candidates() for _ in plans]
-        sizes = [seg.n_rows for _, seg, _, _ in parts]
+        tail = _tail_plan(plans, ks, widths, pool_w, use_mmr)
+        _, div, _, k3 = tail
+        panel, dev, mats, starts = self._chain_head(parts, plans, span, k3)
+        delta = np.asarray([p[0] for p in parts], np.int64) - starts[:-1]
+
+        def finish(i, v):
+            return self._chain_tail(
+                i, v, plans, widths, tail, dev,
+                lambda pool_i, _: self._chain_pool_rows(
+                    mats, pool_i.reshape(-1).long(), dev),
+                lambda cols: cols.astype(np.int64) + delta[
+                    np.searchsorted(starts[1:-1], cols, side="right")])
+
+        with span("segment_merge"):
+            # the union merge is the selection's: one K2 over every part's
+            # columns, the ineligible rows at -inf
+            if "mask" in dev:
+                md = dev["mask"]
+                panel = torch.where(md.T if md.ndim == 2 else md[None, :],
+                                    panel, float("-inf"))
+            v, i = topk(panel, _select_width(widths, int(starts[-1])))
+            if not div:
+                return finish(i, v)   # no K3: the copy back is the merge's
+        with span("segment_mmr"):
+            return finish(i, v)
+
+    def _chain_head(self, parts, plans, span=contextlib.nullcontext,
+                    k3=None):
+        """The chain's K1 step: every host input in one :class:`_Staging`
+        buffer (the folded plans, each part's ages, mask and bias rows,
+        the tail's K3 inputs ``k3``), then each part's K1 and bias into
+        its own columns of one (B, N) panel.  Returns the panel, the
+        staged inputs' device views, the parts' resident matrices and
+        their first columns."""
+        import torch
+
+        from repro_torch.kernels.pem_score.ops import pem_score
+
+        nplans = len(plans)
+        sizes = [mat.shape[0] for _, mat, _, _, _ in parts]
         starts = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
         n = int(starts[-1])
-        w_stat = min(_pow2_bucket(max(widths)), n)
-        if w_stat > MAX_K:
-            return None
-        dim = parts[0][1].matrix.shape[1]
         decay = [p for p in plans if p.decay is not None]
-        masked = any(m is not None for _, _, m, _ in parts)
-        biased = any(b is not None for _, _, _, b in parts)
-        mask_2d = any(m is not None and m.ndim == 2 for _, _, m, _ in parts)
-        bias_2d = any(b is not None and b.ndim == 2 for _, _, _, b in parts)
-        kf = [min(k, w) for k, w in zip(ks, widths)]
-        div = ([j for j, p in enumerate(plans)
-                if p.diverse is not None and kf[j] > 0] if use_mmr else [])
-        width = max((widths[j] for j in div), default=0)
-        # each segment's ages start 16-byte aligned, as K1's TMA reads them
+        masks = [m for _, _, _, m, _ in parts if m is not None]
+        biases = [b for _, _, _, _, b in parts if b is not None]
+        mask_2d = any(m.ndim == 2 for m in masks)
+        bias_2d = any(b.ndim == 2 for b in biases)
+        # each part's ages start 16-byte aligned, as K1's TMA reads them
         days_at = np.concatenate(
             [[0], np.cumsum([-(-s // 4) * 4 for s in sizes])]).astype(int)
 
-        layout = {"q_pre": ((dim, nplans), np.float32),
-                  "q_sup": ((dim, nplans), np.float32)}
+        layout = dict(zip(("q_pre", "q_sup"), (
+            np.asarray(q, np.float32) for q in M.fold_plans(plans))))
         if decay:
-            layout["half_lives"] = ((nplans,), np.float32)
-        if div:
-            layout.update(
-                rows=((len(div),), np.int64),
-                lams=((len(div),), np.float32),
-                live=((len(div), width), np.bool_),
-                starts=((len(parts),), np.int64),
-                segs=((len(parts), 1), np.int64),
-                last=((len(parts), 1), np.int64))
+            layout["half_lives"] = _half_lives(plans)
+        if k3:
+            layout.update(k3)
+            if len(parts) > 1:
+                layout.update(starts=starts[:-1],
+                              segs=np.arange(len(parts))[:, None],
+                              last=np.asarray(sizes, np.int64)[:, None] - 1)
         header = list(layout)
         if decay:
             layout["days"] = ((int(days_at[-1]),), np.float32)
-        if masked:
+        if masks:
             layout["mask"] = ((n, nplans) if mask_2d else (n,), np.bool_)
-        if biased:
+        if biases:
             layout["bias"] = ((n, nplans) if bias_2d else (n,), np.float32)
         stage = _Staging(layout, self.device)
-        q_pre, q_sup = M.fold_plans(plans)
-        stage.host("q_pre")[...] = q_pre
-        stage.host("q_sup")[...] = q_sup
-        if decay:
-            stage.host("half_lives")[...] = _half_lives(plans)
-        if div:
-            stage.host("rows")[...] = div
-            stage.host("lams")[...] = [plans[j].diverse.lam for j in div]
-            live = stage.host("live")
-            live[...] = False
-            for r, j in enumerate(div):
-                live[r, :widths[j]] = True
-            stage.host("starts")[...] = starts[:-1]
-            stage.host("segs")[:, 0] = np.arange(len(parts))
-            stage.host("last")[:, 0] = np.asarray(sizes) - 1
         dev = dict(zip(header, stage.send(*header)))
 
         panel = torch.empty((nplans, n), dtype=torch.float32,
                             device=self.device)
         mats = []
-        for s, (_, seg, m, b) in enumerate(parts):
-            with spans.span("segment_pass"):
+        for s, (_, matrix, days, m, b) in enumerate(parts):
+            with span("segment_pass"):
                 lo, hi = int(starts[s]), int(starts[s + 1])
                 ages = {}
                 if decay:
-                    days = seg.days_ago(now)
                     _require_days(decay[0], days)
-                    a = int(days_at[s])
-                    stage.host("days")[a:a + hi - lo] = days
-                    ages = dict(days_ago=stage.send_rows("days", a,
-                                                         a + hi - lo),
+                    a, z = int(days_at[s]), int(days_at[s]) + hi - lo
+                    stage.host("days")[a:z] = days
+                    ages = dict(days_ago=stage.send_rows("days", a, z),
                                 half_lives=dev["half_lives"])
-                if masked:
+                if masks:
                     stage.host("mask")[lo:hi] = (
                         True if m is None
                         else m[:, None] if mask_2d and m.ndim == 1 else m)
-                mat = self._device_matrix(seg.matrix)
-                mats.append(mat)
+                mats.append(self._device_matrix(matrix))
                 cols = panel[:, lo:hi]
-                pem_score(mat, dev["q_pre"], dev["q_sup"], out=cols.T,
+                # the transposed view takes the (N, B) scores K1 computes
+                # straight into the (B, N) rows K2 reads
+                pem_score(mats[-1], dev["q_pre"], dev["q_sup"], out=cols.T,
                           **ages)
                 if b is not None:
-                    # hybrid lexical leg, on this segment's columns only
+                    # hybrid lexical leg, on this part's columns only
                     stage.host("bias")[lo:hi] = (
                         b[:, None] if bias_2d and b.ndim == 1 else b)
                     bd = stage.send_rows("bias", lo, hi)
                     cols += bd.T if bias_2d else bd[None, :]
+        if masks:
+            (dev["mask"],) = stage.send("mask")
+        return panel, dev, mats, starts
 
-        delta = np.asarray([off for off, _, _, _ in parts],
-                           np.int64) - starts[:-1]
+    def _chain_tail(self, i, v, plans, widths, tail, dev, pool_rows,
+                    rows_of):
+        """K2's (B, w) int32 columns ``i`` and scores ``v`` on the device
+        to per-plan ``(rows, scores)`` with ONE blocking copy back: the
+        plans K3 does not finish take their top ``widths[j]`` (-inf
+        trailing where a mask leaves fewer rows); one K3 finishes the
+        rest over the (D * width, d) pool rows ``pool_rows(pool_i,
+        rows)`` gathers on the card.  ``tail`` is :func:`_tail_plan`'s,
+        ``dev`` its K3 inputs on the device; ``rows_of`` maps columns to
+        rows on the host."""
+        import torch
 
-        def global_rows(cols: np.ndarray) -> np.ndarray:
-            cols = cols.astype(np.int64)
-            if (delta == delta[0]).all():
-                return cols + delta[0]
-            return cols + delta[np.searchsorted(starts[1:-1], cols,
-                                                side="right")]
+        from repro_torch.kernels.mmr.ops import mmr_select
 
-        plain = [j for j in range(nplans) if j not in div and widths[j]]
+        kf, div, plain, _ = tail
         wp = max((widths[j] for j in plain), default=0)
-        with spans.span("segment_merge"):
-            # the union merge is the selection's: one K2 over every
-            # segment's columns, the ineligible rows at -inf
-            if masked:
-                (md,) = stage.send("mask")
-                panel = torch.where(md.T if mask_2d else md[None, :], panel,
-                                    float("-inf"))
-            v, i = topk(panel, w_stat)
-            if not div:
-                i_h, v_h = _to_host_packed(i[:, :wp], v[:, :wp])
+        top = (i[:, :wp], v[:, :wp]) if wp else ()
+        picks = ()
         if div:
-            with spans.span("segment_mmr"):
-                if div == list(range(nplans)):
-                    pool_i, pool_v = i[:, :width], v[:, :width]
-                else:
-                    pool_i = i.index_select(0, dev["rows"])[:, :width]
-                    pool_v = v.index_select(0, dev["rows"])[:, :width]
-                emb = self._chain_pool_rows(
-                    mats, pool_i.reshape(-1).long(), dev["starts"],
-                    dev["segs"], dev["last"])
-                sel, _ = mmr_select(
-                    emb.float().view(len(div), width, dim),
-                    torch.where(dev["live"], pool_v, _MMR_NEG),
-                    max(kf[j] for j in div), dev["lams"])
-                sel = sel.long()
-                back = _to_host_packed(
-                    torch.gather(pool_i, 1, sel), torch.gather(pool_v, 1, sel),
-                    *((i[:, :wp], v[:, :wp]) if wp else ()))
-            pick_i, pick_v = back[0], back[1]
-            if wp:
-                i_h, v_h = back[2], back[3]
-
+            width = dev["live"].shape[1]
+            if len(div) == len(plans):
+                pool_i, pool_v = i[:, :width], v[:, :width]
+            else:
+                pool_i = i.index_select(0, dev["rows"])[:, :width]
+                pool_v = v.index_select(0, dev["rows"])[:, :width]
+            emb = pool_rows(pool_i, dev["rows"])
+            # a slot past its pool's width carries NEG
+            sel, _ = mmr_select(
+                emb.float().view(len(div), width, -1),
+                torch.where(dev["live"], pool_v, _MMR_NEG),
+                max(kf[j] for j in div), dev["lams"])
+            sel = sel.long()
+            picks = tuple(torch.gather(t, 1, sel) for t in (pool_i, pool_v))
+        back = _to_host_packed(*picks, *top) if picks or top else []
         out = [_empty_candidates() for _ in plans]
         for r, j in enumerate(div):
-            out[j] = (global_rows(pick_i[r, :kf[j]]), pick_v[r, :kf[j]])
+            out[j] = (rows_of(back[0][r, :kf[j]]), back[1][r, :kf[j]])
         for j in plain:
-            out[j] = (global_rows(i_h[j, :widths[j]]), v_h[j, :widths[j]])
+            w = widths[j]
+            out[j] = (rows_of(back[-2][j, :w]), back[-1][j, :w])
         return out
 
     @staticmethod
-    def _chain_pool_rows(mats, cols, starts, segs, last):
-        """(P, d) rows of the panel columns ``cols``, each gathered from
-        its segment's resident matrix: every segment gathers every column
-        (clamped to its rows), and a range test on the column keeps the
-        row where the column is the segment's.  On the device: ``starts``
-        (S,) the segments' first columns, ``segs`` (S, 1) their indices
-        and ``last`` (S, 1) their last rows."""
+    def _chain_pool_rows(mats, cols, dev):
+        """(P, d) rows of the panel columns ``cols``: every part gathers
+        every column (clamped to its ``last`` row) from its resident
+        matrix, and a range test on the column (``starts``, ``segs``)
+        keeps the part's own."""
         import torch
 
         if len(mats) == 1:
             return mats[0].index_select(0, cols)
-        seg_of = torch.bucketize(cols, starts[1:], right=True)
-        local = (cols - starts[seg_of]).unsqueeze(0).minimum(last)
-        mine = (seg_of.unsqueeze(0) == segs).unsqueeze(2)
+        seg_of = torch.bucketize(cols, dev["starts"][1:], right=True)
+        local = ((cols - dev["starts"][seg_of]).unsqueeze(0)
+                 .minimum(dev["last"]))
+        mine = (seg_of.unsqueeze(0) == dev["segs"]).unsqueeze(2)
         out = mats[0].index_select(0, local[0])
         for s in range(1, len(mats)):
             out = torch.where(mine[s], mats[s].index_select(0, local[s]), out)
@@ -1248,11 +1182,14 @@ class ShardedBackend(HopperBackend):
         for p in plans:
             _require_days(p, days_ago)
         n = matrix.shape[0]
-        if n == 0:
-            return [_empty_candidates() for _ in plans]
         widths = [selection_width(p, k, n) for p, k in zip(plans, ks)]
-        w_stat = min(PlanStructure.of(plans, widths, n).width, n)
-        payload = self._use_mmr(plans, fused_mmr)
+        if not any(widths):
+            return [_empty_candidates() for _ in plans]
+        w_stat = _select_width(widths, n)
+        tail = _tail_plan(plans, ks, widths,
+                          _pool_widths(widths, mask, n, len(plans)),
+                          self._use_mmr(plans, fused_mmr))
+        _, div, _, k3 = tail
         lead = self.device
         cand_v, cand_i, cand_p = [], [], []
         for lo, block, panel in self._shard_panels(matrix, days_ago, plans):
@@ -1273,7 +1210,7 @@ class ShardedBackend(HopperBackend):
             i = i.long()
             cand_v.append(v.to(lead))
             cand_i.append((i + lo).to(lead))
-            if payload:
+            if div:
                 # each shard gathers its OWN pool rows (padding columns
                 # clamp to a real row: the merge never selects them)
                 pe = (block.index_select(0, i.clamp(max=rows - 1)
@@ -1283,12 +1220,14 @@ class ShardedBackend(HopperBackend):
                 cand_p.append(pe.view(*i.shape, -1).to(lead))
         merged = merge_shard_major(
             torch.stack(cand_v), torch.stack(cand_i), w_stat,
-            torch.stack(cand_p) if payload else None)
-        i, v = merged[0], merged[1]
-        return self._finish_select(
-            plans, ks, widths, mask, n, i, v, fused_mmr,
+            torch.stack(cand_p) if div else None)
+        staged = dict(zip(k3, _Staging(k3, lead).send(*k3))) if k3 else {}
+        # the pool rows are the merge's payload; the copy takes int32 rows
+        return self._chain_tail(
+            merged[0].int(), merged[1], plans, widths, tail, staged,
             lambda pool_i, rows: merged[2].index_select(0, rows)
-            [:, :pool_i.shape[1]].reshape(-1, merged[2].shape[-1]))
+            [:, :pool_i.shape[1]].reshape(-1, merged[2].shape[-1]),
+            lambda rows: rows.astype(np.int64))
 
     def _gather_pool_device(self, segments, gidx: np.ndarray):
         """(pool, d) f32 embeddings of merged global rows on the lead
@@ -1598,14 +1537,15 @@ def score_select_segments(
     *i+1* (the async engine in :mod:`repro_torch.serve.engine` does exactly
     that).
 
-    On a backend with ``segment_chain`` (:class:`HopperBackend`) the
-    general branch is ONE device chain
-    (:meth:`HopperBackend.score_select_chain`): every segment scores into
-    its own columns of one segment-major panel, and one selection over
-    the panel is the union merge below, done by the card, with one copy
-    back.  Elsewhere each segment scores independently through
-    ``backend.score_select`` (its tombstones masked to -inf on device
-    before selection), then the
+    One segment with every row eligible is the monolithic corpus: the
+    fast path is one ``backend.score_select``.  On a backend with
+    ``segment_chain`` (:class:`HopperBackend`) the general branch runs
+    the same device chain (:meth:`HopperBackend.score_select_chain`)
+    over every scored segment: each scores into its own columns of one
+    segment-major panel, and one selection over the panel is the union
+    merge below, done by the card, with one copy back.  Elsewhere each
+    segment scores independently through ``backend.score_select`` (its
+    tombstones masked to -inf on device before selection), then the
     per-segment top-k candidates merge on the host — the same two-stage
     union-merge shape ``dist/pem_sharded.union_merge_topk`` applies across
     device shards, applied across segments: every segment's local top-w
@@ -1622,15 +1562,13 @@ def score_select_segments(
 
     ``ks[j]`` is the final candidate count for plan ``j``; diverse plans
     come back as the oversampled MMR pool (callers finish with
-    :func:`finalize_candidates` over gathered candidate embeddings),
-    exactly like the monolithic ``score_select`` — UNLESS the backend
-    fuses MMR on device (``backend.device_mmr`` and ``device_mmr`` is not
-    forced False), in which case EVERY diverse plan is device-finalized:
-    the fast path fuses MMR into the scoring chain, the segment chain runs
-    K3 over the pools it selected, and the per-segment path runs
-    :meth:`_DeviceMMRMixin.mmr_pool_segments_batch` over the merged
-    pool (gathered from the warm resident segment matrices, never the
-    host).  Callers can then finish with ``mmr_done=backend.device_mmr``.
+    :func:`finalize_candidates`), exactly like ``score_select`` — UNLESS
+    the backend fuses MMR on device (``backend.device_mmr`` and
+    ``device_mmr`` not forced False): then EVERY diverse plan is
+    device-finalized, by the chain's K3 over the pools it selected or by
+    :meth:`_DeviceMMRMixin.mmr_pool_segments_batch` over the merged pool
+    (gathered from the warm resident segment matrices, never the host),
+    and callers finish with ``mmr_done=backend.device_mmr``.
 
     ``candidate_masks`` is the Phase-1 filtered-retrieval hook: per-segment
     bool masks (``SegmentedCorpusStore.candidate_masks``; None = segment
@@ -1732,11 +1670,13 @@ def score_select_segments(
     # the general branch's spans (segment_pass, segment_merge,
     # segment_mmr) split its host time; the fast path above opens none
     if backend.segment_chain:
+        decays = any(p.decay is not None for p in plans)
         out = backend.score_select_chain(
-            [(int(offsets[i]), seg, m,
+            [(int(offsets[i]), seg.matrix,
+              seg.days_ago(now) if decays else None, m,
               None if score_bias is None else score_bias[i])
              for i, seg, m, _ in scored],
-            plans, ks_eff, widths, now, use_mmr)
+            plans, ks_eff, widths, use_mmr)
         if out is not None:
             if counters is not None:
                 counters.segment_chains += 1

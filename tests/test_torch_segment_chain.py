@@ -63,12 +63,13 @@ DEAD = {"live_240k": None, "8_segments_all_live": 0.0,
         "1_segment_tombstoned": None, "ragged": 0.03}
 
 
-def _store(layout, seed=35):
+def _store(layout, seed=35, dead=None):
     rng = np.random.default_rng(seed)
     m = rng.standard_normal((N, DIM)).astype(np.float32)
     m /= np.linalg.norm(m, axis=1, keepdims=True)
     ts = NOW - rng.uniform(0.0, 180 * 86400.0, N)
-    dead = DEAD[layout]
+    if dead is None:
+        dead = DEAD[layout]
     live = rng.random(N) >= (_live_240k()[1] if dead is None else dead)
     return store_from_arrays([
         {"ids": np.arange(a, b, dtype=np.int64) + 10_000, "matrix": m[a:b],
@@ -238,9 +239,16 @@ def test_ties_go_to_the_smallest_row_in_the_chain():
             assert len(set(vals.tolist())) < vals.size   # ties selected
 
 
-def test_chain_takes_the_panel_in_one_pass_of_each_kernel(monkeypatch):
+@pytest.mark.parametrize("layout,dead,k1", [
+    ("live_240k", None, 8), ("1_segment_tombstoned", 0.0, 1)],
+    ids=["8_segments", "1_segment_all_live"])
+def test_chain_takes_the_panel_in_one_pass_of_each_kernel(monkeypatch, layout,
+                                                          dead, k1):
     """Eight segments: one K1 call a segment, one K2 call and one K3 call
-    for the cohort, and no merged pool through the host."""
+    for the cohort, and no merged pool through the host.  One segment
+    with every row live takes the fast path (``score_select``): one call
+    of each kernel, the pool's rows gathered from the resident matrix on
+    the device, and the one copy back is the final candidates'."""
     from repro_torch.kernels.mmr import ops as mmr_ops
     from repro_torch.kernels.pem_score import ops as pem_ops
     from repro_torch.kernels.topk import ops as topk_ops
@@ -259,12 +267,55 @@ def test_chain_takes_the_panel_in_one_pass_of_each_kernel(monkeypatch):
     count(pem_ops, "pem_score", "pem_score")
     count(topk_ops, "topk", "topk")
     count(mmr_ops, "mmr_select", "mmr")
-    store = _store("live_240k")
+    copies = []
+    real_to_host = B._to_host
+    monkeypatch.setattr(B, "_to_host",
+                        lambda *t: copies.append(len(t)) or real_to_host(*t))
+    store = _store(layout, dead=dead)
+    assert len(store.segments) == k1
     backend = B.HopperBackend("cpu")
     backend.mmr_pool_segments_batch = None   # the loop's; must not run
-    B.score_select_segments(backend, store.segments, _plans(4, True, True),
-                            [50, 20, 7, 33], now=NOW)
-    assert calls == {"pem_score": 8, "topk": 1, "mmr": 1}
+    backend._gather_pool_device = None       # a gather by host indices
+    out = B.score_select_segments(backend, store.segments,
+                                  _plans(4, True, True), [50, 20, 7, 33],
+                                  now=NOW)
+    assert calls == {"pem_score": k1, "topk": 1, "mmr": 1}
+    assert copies == [1]                     # one packed copy back
+    assert [rows.size for rows, _ in out] == [50, 20, 7, 33]
+
+
+def test_score_select_stages_its_inputs_and_copies_back_once(monkeypatch):
+    """``HopperBackend.score_select`` on a warm matrix lays every input
+    out in one ``_Staging`` buffer, uploads no array of its own, and
+    copies a diverse cohort's answer back in one blocking copy, under a
+    mask and a bias; its answer is the one it gave before the spies."""
+    store = _store("1_segment_tombstoned")
+    seg = store.segments[0]
+    plans = _plans(4, True, True)
+    plans[1] = dataclasses.replace(plans[1], diverse=None)
+    bias = np.random.default_rng(3).uniform(0.0, 0.1, N).astype(np.float32)
+    backend = B.HopperBackend("cpu")
+
+    def select():
+        return backend.score_select(seg.matrix, seg.days_ago(NOW), plans,
+                                    [50, 20, 7, 33], mask=seg.live_mask,
+                                    score_bias=bias)
+
+    want = select()                          # uploads the matrix
+    seen = []
+
+    def spy(name, real):
+        def wrapped(*a, **kw):
+            seen.append(name)
+            return real(*a, **kw)
+        monkeypatch.setattr(B, name, wrapped)
+
+    for name in ("_Staging", "_to_device", "_to_host"):
+        spy(name, getattr(B, name))
+    got = select()
+    assert sorted(seen) == ["_Staging", "_to_host"]
+    _assert_bit_equal(got, want)
+    assert [rows.size for rows, _ in got] == [50, 20, 7, 33]
 
 
 def test_other_backends_keep_the_loop():

@@ -109,7 +109,7 @@ def test_each_request_is_one_root_with_its_children_nested(built, recorder):
         assert (root.name, root.id) == ("flex_search", rid)
         assert t0 <= root.start_ns <= root.end_ns <= t1
         assert {s.name for s in group} == {"flex_search", *PARENT}
-        assert sum(s.name == "device_wait" for s in group) == 2
+        assert sum(s.name == "device_wait" for s in group) == 1
         for s in group:
             if s is root:
                 continue
@@ -166,7 +166,7 @@ def test_a_new_profiler_session_starts_a_fresh_recording(built,
         svc.flex_search(stream.request(0))
         svc.flex_search(stream.request(1))
     first = rec.snapshot()
-    per_request = 1 + len(PARENT) + 1        # device_wait twice
+    per_request = 1 + len(PARENT)            # device_wait once
     assert len(first.spans) == 12
     assert first.dropped == 2 * per_request - 12
     svc.flex_search(stream.request(2))
