@@ -509,6 +509,7 @@ def pem_mixed_half_lives(torch, gen) -> dict:
 
     ms = time_ms(torch, lambda: pem_score(m, qp, qs, days_ago=days,
                                           half_lives=hl, out=panel.T), 50)
+    stamped = pem_stamped_ages(torch, m, qp, qs, hl)
     row = {"phase": "kernel", "name": "pem_score", "case": "mixed half-lives",
            "n": n, "d": d, "b": b, "half_lives": levels, "dtype": "float32",
            "launches": launches, "max_abs_err": err, "tol": TOL, "ms": ms,
@@ -517,9 +518,71 @@ def pem_mixed_half_lives(torch, gen) -> dict:
            "plain_ms": time_ms(torch, lambda: pem_score_days_ref(
                m, qp, qs, days, hl), 50),
            "library_ms": time_ms(torch, library, 50),
+           "stamped": stamped,
            **pem_bound(n, d, b, 4)}
     emit(row)
     return row
+
+
+def pem_stamped_ages(torch, m, qp, qs, hl) -> dict:
+    """K1's timestamps form on the main path's shape: the rows' ages
+    formed in the kernel from resident f64 unix seconds (planted on f32
+    ties and boundaries, newer than ``now``, decades old, one NaN), in one
+    launch that counts as stamped.  Its panel equals, bit for bit (a NaN
+    meeting a NaN), the days_ago form fed the host's
+    ``CorpusSegment.days_ago``, and lies within TOL of the plain
+    version's timestamps form wherever that is a number."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from stamp_cases import host_ages, planted_stamps
+
+    from repro_torch.kernels.pem_score.ops import pem_score
+    from repro_torch.kernels.pem_score.ref import pem_score_stamps_ref
+
+    dev = m.device
+    n, b = m.shape[0], qp.shape[1]
+    stamps = planted_stamps(n, seed=37, now=NOW)
+    ts = torch.from_numpy(stamps).to(dev)
+    days = torch.from_numpy(host_ages(stamps, NOW)).to(dev)
+    panel = torch.empty((b, n), device=dev)
+    before = (pem_score.launches, pem_score.stamped_launches)
+    got = pem_score(m, qp, qs, timestamps=ts, now=NOW, half_lives=hl,
+                    out=panel.T)
+    host = pem_score(m, qp, qs, days_ago=days, half_lives=hl)
+    counted = (pem_score.launches - before[0],
+               pem_score.stamped_launches - before[1])
+    want = pem_score_stamps_ref(m, qp, qs, ts, NOW, hl)
+    torch.cuda.synchronize()
+    nan = torch.isnan(host)
+    ref_nan = torch.isnan(want)
+    # a NaN age makes the plain version's factor NaN in a plan without
+    # decay too, where the kernel's is 1 (that plan reads no age): those
+    # entries alone may differ, in either form
+    kept = ref_nan & ~nan
+    nan_ok = not bool((nan & ~ref_nan).any()
+                      or (kept & ~torch.isinf(hl)[None, :]).any())
+    bits_equal = bool(torch.equal(torch.isnan(got), nan)
+                      and torch.equal(got[~nan].view(torch.int32),
+                                      host[~nan].view(torch.int32)))
+    err = float((got[~ref_nan] - want[~ref_nan]).abs().max())
+    if not (bits_equal and nan_ok and err <= TOL and counted == (2, 1)
+            and bool(nan.any())):
+        both = ~(torch.isnan(got) | nan)
+        rows = torch.nonzero(((got != host) & both).any(1)).flatten()[:8]
+        raise AssertionError(
+            f"pem_score timestamps form: equal to the host's ages' panel "
+            f"{bits_equal} ({int(((got != host) & both).sum())} scores "
+            f"differ; rows {rows.tolist()}, timestamps "
+            f"{stamps[rows.cpu().numpy()].tolist()}), NaNs as the plain "
+            f"version's {nan_ok} ({int((nan & ~ref_nan).sum())} NaN in the "
+            f"kernel's alone, {int(kept.sum())} in the plain version's "
+            f"alone), max error {err}, (launches, stamped) {counted}")
+    return {"n": n, "b": b, "bit_equal_to_host_ages": bits_equal,
+            "max_abs_err": err, "tol": TOL, "nan_scores": int(nan.sum()),
+            "nan_in_plain_only": int(kept.sum()),
+            "stamped_launches": counted[1],
+            "ms": time_ms(torch, lambda: pem_score(
+                m, qp, qs, timestamps=ts, now=NOW, half_lives=hl,
+                out=panel.T), 50)}
 
 
 ADVERSARIAL = ("masked", "100 live", "constant", "64 levels", "signed zeros",
@@ -823,11 +886,12 @@ def _reset_counts() -> None:
     from repro_torch.kernels.topk.ops import topk
 
     pem_score.launches = topk.launches = mmr_select.launches = 0
+    pem_score.stamped_launches = 0
 
 
 def phase_main_path(torch) -> dict:
     from repro_torch.core.backends import (FusedNumpyBackend, HopperBackend,
-                                           selection_width)
+                                           Stamps, selection_width)
     from repro_torch.core.grammar import parse
     from repro_torch.core.materializer import Materializer
     from repro_torch.data.corpus import build_database, generate_corpus
@@ -913,9 +977,12 @@ def phase_main_path(torch) -> dict:
     plan = parse(TOKENS, emb)
     seg = svc.cache.store.segments[0]
     k = min(plan.pool, seg.n_rows)
-    pools = [b.score_select(seg.matrix, seg.days_ago(NOW), [plan], [k],
+    # the card forms the ages from the segment's resident timestamps, the
+    # oracle takes the host's
+    pools = [b.score_select(seg.matrix, days, [plan], [k],
                             fused_mmr=False)[0]
-             for b in (backend, FusedNumpyBackend())]
+             for b, days in ((backend, Stamps(seg.timestamps, NOW)),
+                             (FusedNumpyBackend(), seg.days_ago(NOW)))]
     pool = check_pool("composed query pool", *pools)
     if pool["pool"] != selection_width(plan, k, seg.n_rows):
         raise AssertionError(f"pool width {pool['pool']}")

@@ -48,7 +48,10 @@ backends score each segment independently and merge the per-segment
 top-k candidates on the host.  Either way the result is bit-identical to
 a monolithic store.
 The per-array device matrix cache (:class:`_DeviceMatrixMixin`) holds one
-entry per warm segment, so appending a segment uploads ONLY the delta.
+entry per warm segment, so appending a segment uploads ONLY the delta; on
+:class:`HopperBackend` each segment's timestamps stay resident beside it
+and the ``pem_score`` kernel forms the rows' ages from them (:class:`Stamps`),
+so no per-query ages are made on the host or copied up.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ import dataclasses
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 
@@ -85,6 +89,7 @@ __all__ = [
     "finalize_segment_candidates",
     "PrefilterRouter",
     "FusedCounters",
+    "Stamps",
     "mmr_host",
     "plan_fusion_bias",
     "fusion_bias_arrays",
@@ -92,6 +97,31 @@ __all__ = [
 ]
 
 Candidates = Tuple[np.ndarray, np.ndarray]  # (indices, scores), descending
+
+
+class Stamps(NamedTuple):
+    """A row block's ages as :func:`score_select_segments` passes them in
+    place of ``days_ago``: the block's sealed (n,) float64 unix
+    timestamps and the query's ``now``.  :class:`HopperBackend` keeps the
+    timestamps on the card and K1 forms ``max((now - ts) / 86400, 0)`` in
+    f32 from them; the other backends take :meth:`host_ages` at their
+    ``score_select`` entry.  Both are ``CorpusSegment.days_ago(now)`` bit
+    for bit."""
+
+    timestamps: np.ndarray
+    now: float
+
+    def host_ages(self) -> np.ndarray:
+        """The (n,) f32 ages made on the host."""
+        from repro_torch.core.segments import ages_in_days
+
+        return ages_in_days(self.timestamps, self.now)
+
+
+def _host_days(days_ago):
+    """``days_ago`` for a backend that scores from the host's ages:
+    :class:`Stamps` made into ages, anything else as it is."""
+    return days_ago.host_ages() if isinstance(days_ago, Stamps) else days_ago
 
 
 def _require_days(plan: M.ModulationPlan, days_ago: Optional[np.ndarray]) -> None:
@@ -406,6 +436,27 @@ def _entry_bytes(entry) -> int:
     return int(entry.numel() * entry.element_size())
 
 
+def _lru_get(cache: "OrderedDict[int, Tuple[np.ndarray, object]]",
+             array: np.ndarray, upload: Callable, size: int):
+    """``array``'s device copy from ``cache`` (LRU of ``size`` entries,
+    keyed on the array's identity), made by ``upload`` on a miss:
+    ``(copy, hit, evictions)``."""
+    key = id(array)
+    entry = cache.get(key)
+    # the stored source reference guards against id() reuse after gc
+    if entry is not None and entry[0] is array:
+        cache.move_to_end(key)
+        return entry[1], True, 0
+    dev = upload(array)
+    cache[key] = (array, dev)
+    cache.move_to_end(key)
+    evicted = 0
+    while len(cache) > size:
+        cache.popitem(last=False)
+        evicted += 1
+    return dev, False, evicted
+
+
 class _DeviceMatrixMixin:
     """Per-array device-resident corpus cache (bounded, LRU).
 
@@ -413,7 +464,9 @@ class _DeviceMatrixMixin:
     SEVERAL resident tensors at once — keyed on array identity — instead
     of a single slot: appending a 10k-chunk segment to a warm 240k corpus
     uploads ONLY the new segment while every sealed segment stays on
-    ``self.device``.  ``uploads`` counts host->device copies.
+    ``self.device``.  ``uploads`` counts host->device copies.  A
+    segment's timestamps (:meth:`_device_stamps`) keep a cache of their
+    own, of the same size, so they never cycle the matrices' sooner.
     """
 
     _DEV_CACHE_SIZE = 32
@@ -421,27 +474,37 @@ class _DeviceMatrixMixin:
     uploads = 0        # host->device copies performed
     dev_hits = 0       # calls served from the resident cache
     dev_evictions = 0  # LRU evictions
+    stamp_uploads = 0  # timestamp arrays copied to the device
 
     def _upload(self, matrix: np.ndarray):
         return _corpus_tensor(matrix, self.device)
 
     def _device_matrix(self, matrix: np.ndarray):
-        cache: "OrderedDict[int, Tuple[np.ndarray, object]]"
-        cache = self.__dict__.setdefault("_dev_cache", OrderedDict())
-        key = id(matrix)
-        entry = cache.get(key)
-        # the stored source reference guards against id() reuse after gc
-        if entry is not None and entry[0] is matrix:
-            cache.move_to_end(key)
+        dev, hit, evicted = _lru_get(
+            self.__dict__.setdefault("_dev_cache", OrderedDict()), matrix,
+            self._upload, self._DEV_CACHE_SIZE)
+        if hit:
             self.dev_hits += 1
-            return entry[1]
-        dev = self._upload(matrix)
-        cache[key] = (matrix, dev)
-        cache.move_to_end(key)
-        self.uploads += 1
-        while len(cache) > self._DEV_CACHE_SIZE:
-            cache.popitem(last=False)
-            self.dev_evictions += 1
+        else:
+            self.uploads += 1
+            self.dev_evictions += evicted
+        return dev
+
+    def _device_stamps(self, timestamps: np.ndarray):
+        """A sealed segment's (n,) float64 timestamps on ``self.device``,
+        uploaded once (``stamp_uploads``); never keyed on ``now``."""
+        import torch
+
+        def upload(ts):
+            # a tensor of its own on the CPU too: torch's allocations are
+            # 16-byte aligned, as K1's TMA reads them
+            return torch.from_numpy(np.ascontiguousarray(ts, np.float64)).to(
+                self.device, copy=True)
+
+        dev, hit, _ = _lru_get(
+            self.__dict__.setdefault("_stamp_cache", OrderedDict()),
+            timestamps, upload, self._DEV_CACHE_SIZE)
+        self.stamp_uploads += not hit
         return dev
 
     def drop_device_matrix(self, matrix: np.ndarray) -> None:
@@ -456,12 +519,17 @@ class _DeviceMatrixMixin:
         # one C-level copy of the entries: a scoring pass on another
         # thread may insert or evict while the bytes are summed
         entries = list(self.__dict__.get("_dev_cache", {}).values())
+        stamps = list(self.__dict__.get("_stamp_cache", {}).values())
         return {
             "entries": len(entries),
             "uploads": self.uploads,
             "hits": self.dev_hits,
             "evictions": self.dev_evictions,
             "bytes": sum(_entry_bytes(dev) for _, dev in entries),
+            # the segments' resident timestamps (:meth:`_device_stamps`)
+            "stamp_entries": len(stamps),
+            "stamp_uploads": self.stamp_uploads,
+            "stamp_bytes": sum(_entry_bytes(dev) for _, dev in stamps),
         }
 
 
@@ -773,8 +841,11 @@ class ExecutionBackend:
         on device).  When fewer than ``w`` rows are eligible, the -inf
         entries trail the result; :func:`score_select_segments` filters
         them.
+
+        ``days_ago`` may be the rows' :class:`Stamps` (what
+        :func:`score_select_segments` passes).
         """
-        panel = self.score_panel(matrix, days_ago, plans)
+        panel = self.score_panel(matrix, _host_days(days_ago), plans)
         n = panel.shape[0]
         out: List[Candidates] = []
         for j, (plan, k) in enumerate(zip(plans, ks)):
@@ -868,7 +939,8 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
     def score_select(self, matrix, days_ago, plans, ks, *, mask=None,
                      fused_mmr=None, score_bias=None, cohort=False):
         # the kernels take exact shapes (nothing compiled per batch size),
-        # so the cohort flag has nothing to bucket here
+        # so the cohort flag has nothing to bucket here; ``days_ago`` may
+        # be the rows' Stamps, whose ages K1 forms
         for p in plans:
             _require_days(p, days_ago)
         n = matrix.shape[0]
@@ -893,14 +965,15 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
     def _chain(self, parts, plans, ks, widths, pool_w, use_mmr,
                span=contextlib.nullcontext):
         """ONE device chain over ``parts``, row blocks in order as
-        ``(global row offset, matrix, days_ago, eligible mask, score
-        bias)`` (None for none): :meth:`_chain_head` scores them into one
-        (B, N) panel, the mask drops rows to -inf, ONE K2 selects over the
-        panel (ties to the smallest column, the smallest global row: the
-        stable union merge of the blocks' top-w) and :meth:`_chain_tail`
-        finishes.  ``pool_w`` are the pools' widths, clamped to each
-        plan's eligible rows.  ``span`` opens the general branch's spans;
-        a ``score_select`` opens none (a null context a site)."""
+        ``(global row offset, matrix, days_ago or Stamps, eligible mask,
+        score bias)`` (None for none): :meth:`_chain_head` scores them
+        into one (B, N) panel, the mask drops rows to -inf, ONE K2 selects
+        over the panel (ties to the smallest column, the smallest global
+        row: the stable union merge of the blocks' top-w) and
+        :meth:`_chain_tail` finishes.  ``pool_w`` are the pools' widths,
+        clamped to each plan's eligible rows.  ``span`` opens the general
+        branch's spans; a ``score_select`` opens none (a null context a
+        site)."""
         import torch
 
         from repro_torch.kernels.topk.ops import topk
@@ -936,11 +1009,13 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
     def _chain_head(self, parts, plans, span=contextlib.nullcontext,
                     k3=None):
         """The chain's K1 step: every host input in one :class:`_Staging`
-        buffer (the folded plans, each part's ages, mask and bias rows,
-        the tail's K3 inputs ``k3``), then each part's K1 and bias into
-        its own columns of one (B, N) panel.  Returns the panel, the
-        staged inputs' device views, the parts' resident matrices and
-        their first columns."""
+        buffer (the folded plans, a one-part chain's host ages, each
+        part's mask and bias rows, the tail's K3 inputs ``k3``), then each
+        part's K1 and bias into its own columns of one (B, N) panel.  A
+        part that carries :class:`Stamps` stages no ages: its K1 forms
+        them from the resident timestamps.  Returns the panel, the staged
+        inputs' device views, the parts' resident matrices and their
+        first columns."""
         import torch
 
         from repro_torch.kernels.pem_score.ops import pem_score
@@ -954,9 +1029,11 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
         biases = [b for _, _, _, _, b in parts if b is not None]
         mask_2d = any(m.ndim == 2 for m in masks)
         bias_2d = any(b.ndim == 2 for b in biases)
-        # each part's ages start 16-byte aligned, as K1's TMA reads them
-        days_at = np.concatenate(
-            [[0], np.cumsum([-(-s // 4) * 4 for s in sizes])]).astype(int)
+        # the host's ages come with one part (score_select, score_panel);
+        # the segment chains carry Stamps
+        host_days = (bool(decay) and len(parts) == 1
+                     and parts[0][2] is not None
+                     and not isinstance(parts[0][2], Stamps))
 
         layout = dict(zip(("q_pre", "q_sup"), (
             np.asarray(q, np.float32) for q in M.fold_plans(plans))))
@@ -969,8 +1046,8 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
                               segs=np.arange(len(parts))[:, None],
                               last=np.asarray(sizes, np.int64)[:, None] - 1)
         header = list(layout)
-        if decay:
-            layout["days"] = ((int(days_at[-1]),), np.float32)
+        if host_days:
+            layout["days"] = ((n,), np.float32)
         if masks:
             layout["mask"] = ((n, nplans) if mask_2d else (n,), np.bool_)
         if biases:
@@ -987,10 +1064,17 @@ class HopperBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
                 ages = {}
                 if decay:
                     _require_days(decay[0], days)
-                    a, z = int(days_at[s]), int(days_at[s]) + hi - lo
-                    stage.host("days")[a:z] = days
-                    ages = dict(days_ago=stage.send_rows("days", a, z),
-                                half_lives=dev["half_lives"])
+                    if isinstance(days, Stamps):
+                        ages = dict(
+                            timestamps=self._device_stamps(days.timestamps),
+                            now=days.now)
+                    elif host_days:
+                        stage.host("days")[...] = days
+                        ages = dict(days_ago=stage.send("days")[0])
+                    else:
+                        raise ValueError("a chain of several parts takes "
+                                         "each part's ages as Stamps")
+                    ages["half_lives"] = dev["half_lives"]
                 if masks:
                     stage.host("mask")[lo:hi] = (
                         True if m is None
@@ -1179,6 +1263,7 @@ class ShardedBackend(HopperBackend):
         from repro_torch.dist.pem_sharded import merge_shard_major
         from repro_torch.kernels.topk.ops import topk
 
+        days_ago = _host_days(days_ago)
         for p in plans:
             _require_days(p, days_ago)
         n = matrix.shape[0]
@@ -1363,6 +1448,7 @@ class TorchBackend(_DeviceMMRMixin, _DeviceMatrixMixin, ExecutionBackend):
 
     def score_select(self, matrix, days_ago, plans, ks, *, mask=None,
                      fused_mmr=None, score_bias=None, cohort=False):
+        days_ago = _host_days(days_ago)
         for p in plans:
             _require_days(p, days_ago)
         n = matrix.shape[0]
@@ -1550,10 +1636,13 @@ def score_select_segments(
     union-merge shape ``dist/pem_sharded.union_merge_topk`` applies across
     device shards, applied across segments: every segment's local top-w
     provably contains its share of the global top-w, so the merge is
-    exact.  Returns per-plan ``(global_rows, scores)`` where global rows
-    offset into the concatenation of ALL segment rows (tombstoned rows
-    included, so offsets are stable under deletes); resolve them with
-    ``segments.gather_rows`` / ``segments.gather_ids``.
+    exact.  Either way each segment's ages go to the backend as its
+    timestamps and ``now`` (:class:`Stamps`): :class:`HopperBackend`'s
+    K1 forms them from the timestamps it keeps on the card, the other
+    backends on the host.  Returns per-plan ``(global_rows, scores)``
+    where global rows offset into the concatenation of ALL segment rows
+    (tombstoned rows included, so offsets are stable under deletes);
+    resolve them with ``segments.gather_rows`` / ``segments.gather_ids``.
 
     Tie-breaking matches the monolithic path bit-for-bit: within a
     segment both ``top_idx`` and ``jax.lax.top_k`` prefer the smallest
@@ -1636,6 +1725,11 @@ def score_select_segments(
     if now is None:
         now = time.time()
     offsets = segment_offsets(segments)
+
+    def ages(seg):
+        return None if seg.timestamps is None else Stamps(seg.timestamps,
+                                                          float(now))
+
     use_mmr = (backend.device_mmr and device_mmr is not False
                and any(p.diverse is not None for p in plans))
 
@@ -1646,7 +1740,7 @@ def score_select_segments(
         i, seg, _, c = scored[0]
         n_el = int(c[0])
         out = backend.score_select(
-            seg.matrix, seg.days_ago(now), plans,
+            seg.matrix, ages(seg), plans,
             [min(k, n_el) for k in ks], fused_mmr=device_mmr,
             score_bias=None if score_bias is None else score_bias[i],
             cohort=cohort)
@@ -1672,8 +1766,7 @@ def score_select_segments(
     if backend.segment_chain:
         decays = any(p.decay is not None for p in plans)
         out = backend.score_select_chain(
-            [(int(offsets[i]), seg.matrix,
-              seg.days_ago(now) if decays else None, m,
+            [(int(offsets[i]), seg.matrix, ages(seg) if decays else None, m,
               None if score_bias is None else score_bias[i])
              for i, seg, m, _ in scored],
             plans, ks_eff, widths, use_mmr)
@@ -1690,7 +1783,7 @@ def score_select_segments(
     for i, seg, m, _ in scored:
         with spans.span("segment_pass"):
             sel = backend.score_select(
-                seg.matrix, seg.days_ago(now), seg_plans, widths, mask=m,
+                seg.matrix, ages(seg), seg_plans, widths, mask=m,
                 score_bias=None if score_bias is None else score_bias[i],
                 cohort=cohort)
             parts.append([(idx + offsets[i], vals) for idx, vals in sel])

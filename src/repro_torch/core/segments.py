@@ -132,9 +132,14 @@ class CorpusSegment:
         """Per-row age in days at ``now`` (None when timestamps absent)."""
         if self.timestamps is None:
             return None
-        return np.maximum(
-            (now - self.timestamps) / SECONDS_PER_DAY, 0.0
-        ).astype(np.float32)
+        return ages_in_days(self.timestamps, now)
+
+
+def ages_in_days(timestamps: np.ndarray, now: float) -> np.ndarray:
+    """(n,) f32 age in days at ``now`` of rows stamped ``timestamps``
+    (unix seconds); a row newer than ``now`` is 0 days old."""
+    return np.maximum((now - timestamps) / SECONDS_PER_DAY,
+                      0.0).astype(np.float32)
 
 
 def segment_offsets(segments: Sequence[CorpusSegment]) -> np.ndarray:
@@ -198,7 +203,7 @@ def gather_days(
     for s in np.unique(seg_idx):
         sel = seg_idx == s
         ts[sel] = segments[s].timestamps[local[sel]]
-    return np.maximum((now - ts) / SECONDS_PER_DAY, 0.0).astype(np.float32)
+    return ages_in_days(ts, now)
 
 
 @dataclasses.dataclass(frozen=True)

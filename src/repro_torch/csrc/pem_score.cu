@@ -3,6 +3,8 @@
 //   out[n, c] = f[n, c] * (M[n] . q_pre[:, c]) + M[n] . q_sup[:, c]
 //   f[n, c]   = decay[n]                                  (the (N,) form)
 //             = 1 / (1 + days_ago[n] / half_lives[c])      (the per-plan form)
+//   days_ago[n] = f32(max((now - timestamps[n]) / 86400, 0))  (the stamped
+//               form: the ages formed here from (N,) f64 unix seconds)
 //
 // Replaces src/repro/kernels/pem_score/kernel.py::pem_score_pallas (body
 // _pem_score_kernel), the TPU kernel that streams (1024, d) corpus tiles
@@ -38,8 +40,8 @@
 //   block per SM) walks 64-row tiles; two warpgroups take alternate tiles,
 //   each owning half of a ring of 2-8 stages that it refills itself by TMA
 //   (128-byte swizzled boxes, the ragged N and d edges zero-filled; the
-//   rows' decay factors or ages ride in the same stage) as soon as the
-//   tile's last fragments are in registers.  One warpgroup's epilogue
+//   rows' decay factors, ages or timestamps ride in the same stage) as
+//   soon as the tile's last fragments are in registers.  One warpgroup's epilogue
 //   overlaps the other's products.  For B > 32 a tile stays in shared
 //   memory while its warpgroup loops over the 32-plan chunks.
 // * Each thread loads its A fragment from the swizzled tile with 16-byte
@@ -52,8 +54,9 @@
 //   serialise every wgmma.  The steps alternate between independent
 //   accumulators at narrow widths, so a product does not wait out the
 //   latency of the one before.
-// * The epilogue applies the decay (either form; a plan without decay has
-//   half-life +inf, which gives exactly 1) and stores from the
+// * The epilogue applies the decay (any form; a plan without decay has
+//   half-life +inf, which gives exactly 1; a stamped row's age is formed
+//   once a tile, in f64 as the host forms it) and stores from the
 //   accumulator layout: into a (B, N) panel -- the transposed view the
 //   top-k kernel reads -- a warp's store is four whole 32-byte sectors.
 //   Staging the tile through shared memory for whole-line stores was
@@ -197,6 +200,15 @@ __device__ __forceinline__ float decay_factor(float days, float hl,
   return r;
 }
 
+// A row's age in days at `now` from its unix timestamp, as the host forms
+// it: max((now - ts) / 86400, 0) in f64, each operation correctly rounded
+// (a division, not a reciprocal's product), then rounded to f32.  The max
+// keeps a NaN, as np.maximum does (fmax would return the 0).
+__device__ __forceinline__ float age_days(double ts, double now) {
+  const double x = __ddiv_rn(__dsub_rn(now, ts), 86400.0);
+  return __double2float_rn(x >= 0.0 || isnan(x) ? x : 0.0);
+}
+
 // wgmma descriptor of a K-major, 128-byte-swizzled operand: rows of 128
 // bytes, 8-row groups 1024 bytes apart (LBO unused when swizzled)
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
@@ -320,8 +332,11 @@ struct Params {
   const float* half_lives;  // (b,) with days; +inf for a plan without decay
   float* out;               // out[r * so_n + c * so_b]
   long long so_n, so_b;
+  double now;     // the stamped form's time, unix seconds
   int n, d, b;
-  int rows_form;  // 0: no factor, 1: decay (n,), 2: days_ago (n,) + half_lives
+  // 0: no factor, 1: decay (n,) f32, 2: days_ago (n,) f32 + half_lives,
+  // 3: timestamps (n,) f64 + now + half_lives
+  int rows_form;
   int nbox;       // 128-byte-wide boxes across a corpus row
   int ntiles;     // 64-row tiles
   int nchunks;    // query chunks of NW / 2 plans
@@ -496,7 +511,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t base = smem_addr(smem);
   const uint32_t full = base + p.bar_off;  // + 8 * stage
-  const float* rows_smem = reinterpret_cast<const float*>(smem + p.rows_off);
+  // a stage's rows: 64 f32 factors or ages, or 64 f64 timestamps
+  const char* rows_smem = smem + p.rows_off;
+  const uint32_t row_bytes = p.rows_form == 3 ? 8 : 4;
   float* hl_smem = reinterpret_cast<float*>(smem + p.hl_off);  // hl, 1/hl
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, wl = warp & 3, tw = threadIdx.x & 127;
@@ -512,22 +529,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   // it-th tile lands in stage it % stages, so it owns the stages s with
   // s % kConsumers == wg and refills each itself as soon as it is read.
   // A stage holds the tile's boxes and, beside them, its rows' decay
-  // factors or ages.
+  // factors, ages or timestamps (kRows * 8 bytes a stage whatever the
+  // form).
   const CUtensorMap* corpus = &map;
   const CUtensorMap* rows_vec = &rows_map;
   auto load_tile = [&](int s, int tile) {
     mbar_expect_tx(full + 8 * s,
-                   p.stage_bytes + (p.rows_form ? kRows * 4 : 0));
+                   p.stage_bytes + (p.rows_form ? kRows * row_bytes : 0));
     for (int j = 0; j < p.nbox; ++j)
       tma_load_2d(base + s * p.stage_bytes + j * kBoxBytes, corpus,
                   j * kBoxK, tile * kRows, full + 8 * s);
     if (p.rows_form)
-      tma_load_1d(base + p.rows_off + s * kRows * 4, rows_vec, tile * kRows,
+      tma_load_1d(base + p.rows_off + s * kRows * 8, rows_vec, tile * kRows,
                   full + 8 * s);
   };
   // each plan's (hl, rhl) as decay_factor takes them
   for (int c = threadIdx.x; c < p.nchunks * QC; c += kThreads) {
-    const float hl = p.rows_form == 2 && c < p.b ? p.half_lives[c] : 1.f;
+    const float hl = p.rows_form >= 2 && c < p.b ? p.half_lives[c] : 1.f;
     const float rhl = __frcp_rn(hl);
     const bool normal = rhl >= 1.17549435e-38f && rhl < 1e37f;
     hl_smem[2 * c] = isinf(hl) ? 1.f : hl;
@@ -563,9 +581,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(full + 8 * s, (it / p.stages) & 1);
     const char* tl = smem + s * p.stage_bytes;
     float rowv[2] = {1.f, 1.f};  // decay factor or age of rows r0, r0 + 8
-    if (p.rows_form) {
-      rowv[0] = rows_smem[s * kRows + r0];
-      rowv[1] = rows_smem[s * kRows + r0 + 8];
+    const char* rows_stage = rows_smem + s * kRows * 8;
+    if (p.rows_form == 3) {
+      const double* ts = reinterpret_cast<const double*>(rows_stage);
+      rowv[0] = age_days(ts[r0], p.now);
+      rowv[1] = age_days(ts[r0 + 8], p.now);
+    } else if (p.rows_form) {
+      const float* f = reinterpret_cast<const float*>(rows_stage);
+      rowv[0] = f[r0];
+      rowv[1] = f[r0 + 8];
     }
     for (int ch = 0; ch < p.nchunks; ++ch) {
       const uint32_t qoff =
@@ -636,7 +660,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           fac[i][h] = rowv[h];
-          if (p.rows_form == 2) {
+          if (p.rows_form >= 2) {
             const float* c = hl_smem + 2 * (ch * QC + 4 * i + t);
             bool slow;
             fac[i][h] = decay_factor(rowv[h], c[0], c[1], slow);
@@ -706,8 +730,9 @@ cudaError_t make_plan(int n, int d, int b, int bf16, int sms, Plan* pl) {
     const uint32_t qchunk = 2 * (nbox * box_k / 32) * nw * 128;
     const int nchunks = (b + nw / 2 - 1) / (nw / 2);
     const uint32_t hl = 2 * nchunks * (nw / 2) * 4;
-    // + alignment slack, the rows' factors and one barrier per stage
-    const size_t fixed = 1024 + hl + kMaxStages * (kRows * 4 + 8);
+    // + alignment slack, the rows' factors, ages or timestamps (8 bytes a
+    // row, the widest form) and one barrier per stage
+    const size_t fixed = 1024 + hl + kMaxStages * (kRows * 8 + 8);
     for (int resident = 1; resident >= 0; --resident) {
       const size_t nq = resident ? nchunks : kConsumers;
       for (int s = kMaxStages; s >= kConsumers; s -= kConsumers) {
@@ -725,7 +750,7 @@ cudaError_t make_plan(int n, int d, int b, int bf16, int sms, Plan* pl) {
         pl->qchunk_bytes = qchunk;
         pl->q_off = s * stage;
         pl->rows_off = pl->q_off + static_cast<uint32_t>(nq) * qchunk;
-        pl->hl_off = pl->rows_off + s * kRows * 4;
+        pl->hl_off = pl->rows_off + s * kRows * 8;
         pl->bar_off = pl->hl_off + hl;
         pl->smem = pl->bar_off + s * 8 + 1024;
         return cudaSuccess;
@@ -826,13 +851,15 @@ extern "C" int flexvec_pem_score_plan(int n, int d, int b, int m_bf16,
 // m: (n, d) row-major f32 (m_bf16 = 0) or bf16 (m_bf16 = 1), 16-byte
 // aligned, d <= 256 and d * element size a multiple of 16; q_pre, q_sup:
 // (d, b) row-major f32; then either decay (n,) f32, or days (n,) f32 with
-// half_lives (b,) f32, or all three null for ones (decay and days 16-byte
+// half_lives (b,) f32, or stamps (n,) f64 unix seconds with `now` and
+// half_lives, or all four null for ones (decay, days and stamps 16-byte
 // aligned); out[r*so_n + c*so_b] receives the score of row r for plan c.
 // One launch on `stream`; allocates nothing; returns cudaGetLastError()
 // (cudaErrorInvalidValue for a shape the kernel does not take).
 extern "C" int flexvec_pem_score(const void* m, int m_bf16, const void* q_pre,
                                  const void* q_sup, const void* decay,
-                                 const void* days, const void* half_lives,
+                                 const void* days, const void* stamps,
+                                 double now, const void* half_lives,
                                  void* out, int n, int d, int b,
                                  long long so_n, long long so_b,
                                  void* stream) {
@@ -858,13 +885,16 @@ extern "C" int flexvec_pem_score(const void* m, int m_bf16, const void* q_pre,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  // the rows' decay factors or ages, 64 a tile (zeros past n)
-  const void* rows = decay != nullptr ? decay : days;
+  // the rows' decay factors, ages or timestamps, 64 a tile (zeros past n)
+  const void* rows = decay != nullptr ? decay : days != nullptr ? days : stamps;
   memset(&rows_map, 0, sizeof(rows_map));
   if (rows != nullptr) {
     const cuuint64_t rdims[1] = {static_cast<cuuint64_t>(n)};
     const cuuint32_t rbox[1] = {static_cast<cuuint32_t>(kRows)};
-    if (encode(&rows_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+    if (encode(&rows_map,
+               rows == stamps ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               1,
                const_cast<void*>(rows), rdims, strides, rbox, elem,
                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                CU_TENSOR_MAP_L2_PROMOTION_NONE,
@@ -878,10 +908,14 @@ extern "C" int flexvec_pem_score(const void* m, int m_bf16, const void* q_pre,
   p.out = static_cast<float*>(out);
   p.so_n = so_n;
   p.so_b = so_b;
+  p.now = now;
   p.n = n;
   p.d = d;
   p.b = b;
-  p.rows_form = decay != nullptr ? 1 : days != nullptr ? 2 : 0;
+  p.rows_form = decay != nullptr    ? 1
+                : days != nullptr   ? 2
+                : stamps != nullptr ? 3
+                                    : 0;
   p.nbox = pl.nbox;
   p.ntiles = pl.ntiles;
   p.nchunks = pl.nchunks;

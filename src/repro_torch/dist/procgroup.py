@@ -544,6 +544,7 @@ class ShardWorker:
                "mmr": mmr_select.launches}
         if reset:
             pem_score.launches = topk.launches = mmr_select.launches = 0
+            pem_score.stamped_launches = 0
         return out
 
 

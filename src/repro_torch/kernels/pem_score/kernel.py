@@ -20,9 +20,9 @@ MAX_D = 256
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.load().flexvec_pem_score
-    fn.argtypes = [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_longlong, _P]
+    fn.argtypes = [_P, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_double,
+                   _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -32,16 +32,18 @@ def _ptr(t):
 
 
 def launch(matrix: torch.Tensor, q_pre: torch.Tensor, q_sup: torch.Tensor,
-           decay, days_ago, half_lives, out: torch.Tensor) -> None:
+           decay, days_ago, timestamps, now, half_lives,
+           out: torch.Tensor) -> None:
     """Enqueue one scoring launch on the current stream.  Arguments are
     validated by :func:`repro_torch.kernels.pem_score.ops.pem_score`."""
     n, d = matrix.shape
     with torch.cuda.device(matrix.device):  # the launch's current device
         err = _fn()(matrix.data_ptr(), int(matrix.dtype == torch.bfloat16),
                     q_pre.data_ptr(), q_sup.data_ptr(), _ptr(decay),
-                    _ptr(days_ago), _ptr(half_lives), out.data_ptr(),
-                    n, d, q_pre.shape[1], out.stride(0), out.stride(1),
-                    _build.stream_ptr(matrix.device))
+                    _ptr(days_ago), _ptr(timestamps),
+                    0.0 if now is None else float(now), _ptr(half_lives),
+                    out.data_ptr(), n, d, q_pre.shape[1], out.stride(0),
+                    out.stride(1), _build.stream_ptr(matrix.device))
     _build.check(err, "pem_score")
 
 

@@ -8,8 +8,9 @@ forms: :func:`pem_score_ref` takes one (N,) column shared by every plan
 (the reciprocal temporal factor 1/(1 + days/half_life), or ones), and
 :func:`pem_score_days_ref` computes each plan's own column from the rows'
 ages and the plans' half-lives (+inf for a plan without decay gives
-exactly 1).  Float32 accumulation whatever the corpus dtype, like the
-kernel.
+exactly 1); :func:`pem_score_stamps_ref` first forms those ages from the
+rows' unix timestamps and ``now``.  Float32 accumulation whatever the
+corpus dtype, like the kernel.
 """
 
 from __future__ import annotations
@@ -55,3 +56,24 @@ def pem_score_days_ref(
 ) -> torch.Tensor:             # (N, B) float32 scores
     pre, sup = _products(matrix, q_pre, q_sup)
     return decay_factors(days_ago, half_lives) * pre + sup
+
+
+def ages_from_stamps(timestamps: torch.Tensor, now: float) -> torch.Tensor:
+    """(N,) f32 ages in days: ``max((now - ts) / 86400, 0)`` in f64, each
+    operation correctly rounded, then rounded to f32 -- the host's
+    ``CorpusSegment.days_ago`` bit for bit (a NaN timestamp gives NaN, as
+    ``np.maximum`` keeps it)."""
+    x = (float(now) - timestamps.to(torch.float64)) / 86400.0
+    return torch.maximum(x, x.new_zeros(())).to(torch.float32)
+
+
+def pem_score_stamps_ref(
+    matrix: torch.Tensor,      # (N, d) corpus embeddings (f32 or bf16)
+    q_pre: torch.Tensor,       # (d, B)
+    q_sup: torch.Tensor,       # (d, B)
+    timestamps: torch.Tensor,  # (N,) f64 unix seconds
+    now: float,                # unix seconds
+    half_lives: torch.Tensor,  # (B,) per-plan half-lives, +inf for none
+) -> torch.Tensor:             # (N, B) float32 scores
+    return pem_score_days_ref(matrix, q_pre, q_sup,
+                              ages_from_stamps(timestamps, now), half_lives)

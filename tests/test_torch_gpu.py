@@ -221,6 +221,41 @@ def test_pem_score_decay_factors_are_bit_equal(cuda):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 32, 64])
+def test_pem_score_stamped_ages_are_bit_equal(cuda, b, dtype, d):
+    """K1's timestamps form (the ages formed in its epilogue from f64
+    unix seconds) gives the panel its days_ago form gives fed the host's
+    ``CorpusSegment.days_ago``, bit for bit (a NaN meets a NaN): over
+    ages planted on f32 ties and boundaries, rows newer than ``now`` and
+    at it, decades, a NaN timestamp, a ragged n, and mixed half-lives
+    with +inf.  Each call is one launch; the stamped one counts."""
+    from stamp_cases import NOW, host_ages, planted_stamps, same_bits_or_nan
+
+    n = 50_001
+    ts = planted_stamps(n, seed=b * 1000 + d)
+    gen = torch.Generator(device=cuda).manual_seed(b * 1000 + d)
+    m = _unit_rows(gen, n, d, device=cuda).to(dtype)
+    qp = torch.randn(d, b, generator=gen, device=cuda)
+    qs = torch.randn(d, b, generator=gen, device=cuda) * 0.3
+    hl = torch.tensor([7.0, 14.0, 30.0, 90.0, float("inf"), 0.3, 365.0,
+                       1.5], device=cuda).repeat(8)[:b]
+    before = (pem_score.launches, pem_score.stamped_launches)
+    stamped = torch.full((b, n), float("nan"), device=cuda)
+    pem_score(m, qp, qs, out=stamped.T,
+              timestamps=torch.from_numpy(ts).to(cuda), now=NOW,
+              half_lives=hl)
+    days = pem_score(m, qp, qs,
+                     days_ago=torch.from_numpy(host_ages(ts)).to(cuda),
+                     half_lives=hl)
+    torch.cuda.synchronize()
+    assert (pem_score.launches, pem_score.stamped_launches) == (
+        before[0] + 2, before[1] + 1)
+    assert bool(torch.isnan(days[:, 0]).any())   # the NaN row, at b = 1
+    same_bits_or_nan(stamped.T.cpu().numpy(), days.cpu().numpy())
+
+
 @pytest.mark.parametrize("b,n,k", [(32, 240_000, 2048), (1, 240_000, 2048),
                                    (1, 1_000_448, 16), (3, 5000, 500)])
 def test_topk_matches_plain(cuda, b, n, k):
@@ -1509,7 +1544,8 @@ def test_live_store_chain_equals_the_loop_on_the_card(cuda):
     ``composed_diverse`` stream: the general branch as one chain over the
     segment-major panel gives the pass a segment's answers bit for bit
     (ids and score bits), and one request costs 8 K1, 6 K2 and 1 K3
-    launches (the loop's: 8, 48, 1)."""
+    launches (the loop's: 8, 48, 1), every K1 forming its segment's ages
+    from the resident timestamps (8 ``stamped_launches``)."""
     import sys
     from pathlib import Path
 
@@ -1534,7 +1570,8 @@ def test_live_store_chain_equals_the_loop_on_the_card(cuda):
     chain, loop = HopperBackend("cuda"), LoopHopper("cuda")
 
     def launches():
-        return (pem_score.launches, topk.launches, mmr_select.launches)
+        return (pem_score.launches, pem_score.stamped_launches,
+                topk.launches, mmr_select.launches)
 
     try:
         for backend in (chain, loop):   # warm each backend's resident cache
@@ -1552,7 +1589,7 @@ def test_live_store_chain_equals_the_loop_on_the_card(cuda):
         assert cache.fused.segment_loops >= 65
     finally:
         built.system.release()
-    assert counts == {"chain": (8, 6, 1), "loop": (8, 48, 1)}
+    assert counts == {"chain": (8, 8, 6, 1), "loop": (8, 8, 48, 1)}
     for g, w in zip(got, want):
         assert [i for i, _ in g] == [i for i, _ in w]
         assert (np.asarray([v for _, v in g], np.float32).view(np.uint32)

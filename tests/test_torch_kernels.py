@@ -126,11 +126,53 @@ def test_decay_factors_are_bit_equal_to_the_reference_column(half_life):
 def test_pem_score_decay_forms_are_exclusive():
     m = torch.zeros((10, 8))
     q = torch.zeros((8, 2))
+    ts = torch.zeros(10, dtype=torch.float64)
     with pytest.raises(ValueError, match="exclusive"):
         pem_score(m, q, q, torch.ones(10), days_ago=torch.zeros(10),
                   half_lives=torch.ones(2))
     with pytest.raises(ValueError, match="together"):
         pem_score(m, q, q, days_ago=torch.zeros(10))
+    # the timestamps form: with neither other form, now and half-lives
+    # with it, float64
+    with pytest.raises(ValueError, match="exclusive"):
+        pem_score(m, q, q, torch.ones(10), timestamps=ts, now=1.0,
+                  half_lives=torch.ones(2))
+    with pytest.raises(ValueError, match="exclusive"):
+        pem_score(m, q, q, days_ago=torch.zeros(10), timestamps=ts, now=1.0,
+                  half_lives=torch.ones(2))
+    with pytest.raises(ValueError, match="together"):
+        pem_score(m, q, q, timestamps=ts, half_lives=torch.ones(2))
+    with pytest.raises(ValueError, match="together"):
+        pem_score(m, q, q, timestamps=ts, now=1.0)
+    with pytest.raises(ValueError, match="float64"):
+        pem_score(m, q, q, timestamps=ts.float(), now=1.0,
+                  half_lives=torch.ones(2))
+
+
+def test_ages_from_stamps_are_the_hosts_bit_for_bit():
+    """The plain version's ages from timestamps equal the host's
+    ``CorpusSegment.days_ago`` bit for bit over planted f32 ties and
+    boundaries, rows newer than ``now``, decades and a NaN; so its
+    timestamps form scores as its ``days_ago`` form fed the host's
+    ages, and, launching nothing, counts nothing."""
+    from repro_torch.kernels.pem_score.ref import ages_from_stamps
+    from stamp_cases import NOW, host_ages, planted_stamps, same_bits_or_nan
+
+    ts = planted_stamps(8_001, seed=37)
+    want = host_ages(ts)
+    same_bits_or_nan(ages_from_stamps(torch.from_numpy(ts), NOW).numpy(),
+                     want)
+    rng = np.random.default_rng(37)
+    m = torch.from_numpy(_unit_rows(rng, ts.size, 32))
+    qp = torch.from_numpy(rng.standard_normal((32, 6)).astype(np.float32))
+    qs = torch.from_numpy(rng.standard_normal((32, 6)).astype(np.float32))
+    hl = torch.tensor([7.0, 14.0, 30.0, 90.0, np.inf, 0.3])
+    before = (pem_score.launches, pem_score.stamped_launches)
+    got = pem_score(m, qp, qs, timestamps=torch.from_numpy(ts), now=NOW,
+                    half_lives=hl)
+    assert (pem_score.launches, pem_score.stamped_launches) == before
+    same_bits_or_nan(got.numpy(), pem_score(
+        m, qp, qs, days_ago=torch.from_numpy(want), half_lives=hl).numpy())
 
 
 def _check_topk(s: np.ndarray, k: int, block_n: int):

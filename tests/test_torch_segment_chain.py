@@ -327,24 +327,27 @@ def test_other_backends_keep_the_loop():
 
 @pytest.mark.parametrize("sizes", [[3, 5, 7], [4, 1, 2, 9]])
 def test_ages_start_aligned_whatever_the_segment_sizes(sizes, monkeypatch):
-    """Each segment's ages reach K1 at a 16-byte-aligned address, as its
-    TMA reads them, however many rows the segments before it hold."""
+    """Each segment's resident timestamps reach K1 at a 16-byte-aligned
+    address, as its TMA reads them, however many rows the segments
+    before it hold (the segments' arrays are views of one array, at
+    offsets of 8 bytes a row); the chain stages no ages of its own."""
     from repro_torch.kernels.pem_score import ops as pem_ops
 
     seen = []
     real = pem_ops.pem_score
 
-    def spy(*a, days_ago=None, **kw):
-        seen.append(days_ago.data_ptr() - base_ptr[0])
-        return real(*a, days_ago=days_ago, **kw)
+    def spy(*a, days_ago=None, timestamps=None, **kw):
+        assert days_ago is None
+        seen.append(timestamps)
+        return real(*a, timestamps=timestamps, **kw)
 
-    base_ptr = [0]
+    staged = []
     real_staging = B._Staging
 
     class Spying(real_staging):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            base_ptr[0] = self._dev.data_ptr()
+        def __init__(self, layout, *a, **kw):
+            staged.extend(layout)
+            super().__init__(layout, *a, **kw)
 
     monkeypatch.setattr(B, "_Staging", Spying)
     monkeypatch.setattr(pem_ops, "pem_score", spy)
@@ -361,7 +364,219 @@ def test_ages_start_aligned_whatever_the_segment_sizes(sizes, monkeypatch):
     B.score_select_segments(B.HopperBackend("cpu"), store.segments,
                             _plans(2, True, False), [4, 3], now=NOW)
     assert len(seen) == len(sizes)
-    assert all(off % 16 == 0 for off in seen)
+    for t, seg in zip(seen, store.segments):
+        assert t.dtype == torch.float64 and t.data_ptr() % 16 == 0
+        np.testing.assert_array_equal(t.numpy(), seg.timestamps)
+    assert "days" not in staged
+
+
+class HostAges(LoopHopper):
+    """The same kernels fed the host's ages: one ``score_select`` a
+    segment, each taking its :class:`Stamps` as f32 ages made on the host
+    (as the loop backends take them), the form K1 read before it formed
+    the ages itself."""
+
+    def score_select(self, matrix, days_ago, *a, **kw):
+        return super().score_select(matrix, B._host_days(days_ago), *a,
+                                    **kw)
+
+
+def _segments_call(backend, store, kind, now=NOW, masked_fast=False):
+    """One ``score_select_segments`` call of ``kind`` (plain, diverse,
+    masked: 1-D candidate masks, biased: (n,) bias); ``masked_fast``
+    gives the one segment's mask to ``score_select`` itself."""
+    rng = np.random.default_rng(12)
+    plans = _plans(4, True, kind == "diverse")
+    ks = [50, 20, 7, 33]
+    if masked_fast:
+        seg = store.segments[0]
+        return backend.score_select(
+            seg.matrix, B.Stamps(seg.timestamps, now), plans, ks,
+            mask=rng.random(seg.n_rows) < 0.4)
+    kw = {}
+    if kind == "masked":
+        kw["candidate_masks"] = _masks(store, "1d", 4, rng)
+    if kind == "biased":
+        kw["score_bias"] = _bias(store, "1d", 4, rng)
+    return B.score_select_segments(backend, store.segments, plans, ks,
+                                   now=now, **kw)
+
+
+PATHS = {"fast": ("1_segment_tombstoned", 0.0),
+         "general": ("live_240k", None)}
+
+
+def _path_store(path):
+    layout, dead = PATHS[path]
+    return _store(layout, dead=dead)
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("kind", ["plain", "diverse", "masked", "biased"])
+def test_stamped_ages_equal_the_hosts(path, kind):
+    """``HopperBackend`` whose K1 forms the ages from the segments'
+    timestamps gives the candidates, bit for bit, that the same kernels
+    give fed the host's ages: on the fast path (one segment, all live;
+    its mask given to ``score_select``) and the general branch (eight
+    segments, tombstones), plain, diverse, masked and biased."""
+    store = _path_store(path)
+    fast_masked = path == "fast" and kind == "masked"
+    if path == "fast" and not fast_masked:
+        assert len(store.segments) == 1 and not store.segments[0].n_dead
+    got = _segments_call(B.HopperBackend("cpu"), store, kind,
+                         masked_fast=fast_masked)
+    want = _segments_call(HostAges("cpu"), store, kind,
+                          masked_fast=fast_masked)
+    _assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_stamped_chain_matches_the_reference(path):
+    """The chain with K1's ages against ``repro``'s
+    ``score_select_segments`` on the same arrays and token strings:
+    rows equal, scores within 1e-5."""
+    from repro.core import backends as RB
+    from repro.core import grammar as r_grammar
+    from repro.core import modulations as RM
+    from repro.core.segments import SegmentedCorpusStore
+    from repro.embed import HashEmbedder as RHash
+
+    store = _path_store(path)
+    ref = SegmentedCorpusStore(dim=DIM)
+    for seg in store.segments:
+        ref.append(seg.ids, seg.matrix, seg.timestamps, normalized=True)
+    ref.delete([int(i) for s in store.segments for i in s.ids[s.tombstones]])
+    plans = _plans(4, True, True)
+    r_plans = []
+    for j, p in enumerate(plans):
+        mods = [f"decay:{HALF_LIVES[j % 4]}"] if p.decay is not None else []
+        rp = r_grammar.parse(" ".join([TOKENS[j % 4]] + mods + ["diverse"]),
+                             RHash(DIM))
+        r_plans.append(dataclasses.replace(
+            rp, diverse=RM.DiverseSpec(lam=LAMS[j % 4])))
+    ks = [50, 20, 7, 33]
+    got = B.score_select_segments(B.HopperBackend("cpu"), store.segments,
+                                  plans, ks, now=NOW)
+    want = RB.score_select_segments("jit-jax", ref.segments, r_plans, ks,
+                                    now=NOW)
+    for (gi, gv), (wi, wv) in zip(got, want):
+        np.testing.assert_array_equal(gi, np.asarray(wi))
+        np.testing.assert_allclose(gv, np.asarray(wv, np.float32),
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_chain_paths_make_no_host_ages(path, monkeypatch):
+    """Neither chain path makes the rows' ages on the host, from a
+    segment or from its :class:`Stamps`."""
+    from repro_torch.core import segments as S
+
+    def refuse(*a):
+        raise AssertionError("host ages made on a chain path")
+
+    store = _path_store(path)
+    monkeypatch.setattr(S.CorpusSegment, "days_ago", refuse)
+    monkeypatch.setattr(B.Stamps, "host_ages", refuse)
+    for kind in ("plain", "diverse", "biased"):
+        got = _segments_call(B.HopperBackend("cpu"), store, kind)
+        assert [rows.size for rows, _ in got] == [50, 20, 7, 33]
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_each_now_gives_its_own_ages(path):
+    """Two calls on one warm backend at two ``now``s give the two answers
+    the host's ages give: nothing is kept from one ``now`` to the next."""
+    store = _path_store(path)
+    backend = B.HopperBackend("cpu")
+    later = NOW + 45 * 86400.0
+    got = [_segments_call(backend, store, "plain", now=t)
+           for t in (NOW, later, NOW)]
+    for t, g in zip((NOW, later, NOW), got):
+        _assert_bit_equal(g, _segments_call(HostAges("cpu"), store, "plain",
+                                            now=t))
+    assert any(not np.array_equal(_bits(a[1]), _bits(b[1]))
+               for a, b in zip(got[0], got[1]))
+
+
+def test_timestamps_upload_once_a_segment():
+    """A warm store uploads no timestamps: each segment's go up once, and
+    a segment that compaction makes uploads its own once more."""
+    store = _store("live_240k")
+    backend = B.HopperBackend("cpu")
+    for _ in range(3):
+        _segments_call(backend, store, "plain")
+        assert backend.stamp_uploads == len(store.segments) == 8
+    assert backend.uploads == 8
+    store.delete([int(store.segments[k].ids[0]) for k in (3, 5)])
+    folded = store.compact()          # the tombstoned ones, into one
+    assert folded >= 3 and len(store.segments) == 8 - folded + 1
+    _segments_call(backend, store, "plain")
+    _segments_call(backend, store, "plain")
+    assert backend.stamp_uploads == 9 and backend.uploads == 9
+
+
+@pytest.mark.parametrize("path,decay,k1", [
+    ("fast", True, 1), ("general", True, 8), ("fast", False, 0),
+    ("general", False, 0)])
+def test_stamped_launches_count_the_ages_formed(path, decay, k1,
+                                               monkeypatch):
+    """K1 forms the ages once a fast-path call and once a decaying
+    segment of the chain (what ``pem_score.stamped_launches`` counts on a
+    card); a cohort without decay forms none.  The plain path launches
+    nothing, so it leaves the counter, like ``launches``, as it was."""
+    from repro_torch.kernels.pem_score import ops as pem_ops
+
+    formed = []
+    real = pem_ops.pem_score
+
+    def spy(*a, **kw):
+        formed.append(kw.get("timestamps") is not None)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(pem_ops, "pem_score", spy)
+    store = _path_store(path)
+    before = (real.launches, real.stamped_launches)
+    got = B.score_select_segments(B.HopperBackend("cpu"), store.segments,
+                                  _plans(4, decay, True), [50, 20, 7, 33],
+                                  now=NOW)
+    assert sum(formed) == k1
+    assert (real.launches, real.stamped_launches) == before
+    assert [rows.size for rows, _ in got] == [50, 20, 7, 33]
+
+
+@pytest.mark.parametrize("name", ["fused-numpy", "reference-numpy", "torch",
+                                  "sharded"])
+def test_loop_backends_take_stamps_as_host_ages(name):
+    """A backend without the chain takes a segment's :class:`Stamps` at
+    its ``score_select`` entry as the host's ages: the same candidates,
+    bit for bit, as given ``CorpusSegment.days_ago``, plain and diverse,
+    under a mask."""
+    backend = {"fused-numpy": B.FusedNumpyBackend,
+               "reference-numpy": B.ReferenceNumpyBackend,
+               "torch": lambda: B.TorchBackend("cpu"),
+               "sharded": lambda: B.ShardedBackend(["cpu"] * 3)}[name]()
+    seg = _store("live_240k").segments[0]
+    mask = np.random.default_rng(3).random(seg.n_rows) < 0.5
+    for diverse in (False, True):
+        plans = _plans(4, True, diverse)
+        got, want = (backend.score_select(seg.matrix, days, plans,
+                                          [50, 20, 7, 33], mask=mask,
+                                          fused_mmr=False)
+                     for days in (B.Stamps(seg.timestamps, NOW),
+                                  seg.days_ago(NOW)))
+        _assert_bit_equal(got, want)
+
+
+def test_a_chain_of_parts_takes_no_host_ages():
+    """Host ages come with a one-part chain alone: several parts given
+    arrays are refused, not staged."""
+    store = _store("live_240k")
+    parts = [(int(o), seg.matrix, seg.days_ago(NOW), None, None)
+             for o, seg in zip(segment_offsets(store.segments),
+                               store.segments)]
+    with pytest.raises(ValueError, match="Stamps"):
+        B.HopperBackend("cpu").score_select_chain(
+            parts, _plans(2, True, False), [4, 3], [4, 3], False)
 
 
 def test_a_panel_wider_than_k2_takes_the_loop():
